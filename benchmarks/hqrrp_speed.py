@@ -1,16 +1,13 @@
 """HQRRP full-size wall-time measurement (reference: the HQRRP rows of
 bench_general/{GEQP3,HQRRP}_* and rl_hqrrp.hh's role as CQRRPT's fallback
-QRCP + the x64-on-TPU pivoted path).
+QRCP).
 
-Same-process min-of-N; compares the Pallas panel kernels against the jnp
-fori_loop route when both fit the time budget.
+Same-process min-of-N.
 
-Usage: python benchmarks/hqrrp_speed.py [n] [b] [reps] [route] [defer] [tp]
-    route in {auto, never, both, combos, sk, pan}; default auto.
-    "combos" sweeps all four (sketch-kernel, panel-kernel) on/off pairs;
-    "sk"/"pan" enable just the sketch / just the panel kernel.
-    tp in {highest, default}: trailing-update GEMM precision (default =
-    bf16_3x on TPU — the r4 mixed-precision lever).
+Usage: python benchmarks/hqrrp_speed.py [n] [b] [reps] [defer] [tp]
+    defer / tp accept comma lists ("1,2,4"); tp in {highest, high,
+    default}: trailing-update GEMM precision (default = XLA's default,
+    TF32 on a GPU).
 """
 import sys
 import time
@@ -25,32 +22,19 @@ from randlapack_tpu.drivers import HQRRPConfig, hqrrp
 from randlapack_tpu.gen import fast_decay_matrix
 
 
-def _sync(x):
-    return float(jnp.sum(x))
-
-
-_ROUTES = {  # name -> (pallas_qrcp, pallas_panel)
-    "auto": ("auto", "auto"), "never": ("never", "never"),
-    "sk": ("auto", "never"), "pan": ("never", "auto"),
-}
-
-
-def run(n, b, reps, route, defer=1, tp="highest"):
+def run(n, b, reps, defer=1, tp="highest"):
     hp = jax.lax.Precision.HIGHEST
     A, st = fast_decay_matrix(n, n, RNGState(0), dtype=jnp.float32)
     nrmA = float(jnp.linalg.norm(A))
-    sk, pan = _ROUTES[route]
-    cfg = HQRRPConfig(block_size=b, pallas_qrcp=sk, pallas_panel=pan,
-                      update_defer=defer, trailing_precision=tp)
+    cfg = HQRRPConfig(block_size=b, update_defer=defer,
+                      trailing_precision=tp)
     t0 = time.perf_counter()
-    Q, R, J, rank, fail, _ = hqrrp(A, cfg, st)
-    _sync(R)
+    Q, R, J, rank, fail, _ = jax.block_until_ready(hqrrp(A, cfg, st))
     t_c = time.perf_counter() - t0
     best = float("inf")
     for _ in range(reps):
         t0 = time.perf_counter()
-        Q, R, J, rank, fail, _ = hqrrp(A, cfg, st)
-        _sync(R)
+        Q, R, J, rank, fail, _ = jax.block_until_ready(hqrrp(A, cfg, st))
         best = min(best, time.perf_counter() - t0)
     res = float(jnp.linalg.norm(
         jnp.matmul(Q, R, precision=hp) - jnp.take(A, J, axis=1)) / nrmA)
@@ -59,15 +43,14 @@ def run(n, b, reps, route, defer=1, tp="highest"):
     # packed GEQP3-semantics form (no explicit Q) — the number comparable
     # to bqrrp_factored's headline
     from randlapack_tpu.drivers import hqrrp_lapack_format
-    packed, taus, _, _, _ = hqrrp_lapack_format(A, cfg, st)
-    _sync(packed)
+    jax.block_until_ready(hqrrp_lapack_format(A, cfg, st))
     best_p = float("inf")
     for _ in range(reps):
         t0 = time.perf_counter()
-        packed, taus, _, _, _ = hqrrp_lapack_format(A, cfg, st)
-        _sync(packed)
+        jax.block_until_ready(hqrrp_lapack_format(A, cfg, st))
         best_p = min(best_p, time.perf_counter() - t0)
-    print(f"hqrrp n={n} b={b} d{defer} tp={tp} route={route:5s}: {best:8.3f}s  "
+    print(f"[{jax.devices()[0].device_kind}] hqrrp n={n} b={b} d{defer} "
+          f"tp={tp}: {best:8.3f}s  "
           f"{4/3*n**3/best/1e9:6.0f} GF/s  res {res:.2e}  orth {orth:.2e}  "
           f"fail={bool(fail)}  packed {best_p:.3f}s "
           f"({4/3*n**3/best_p/1e9:.0f} GF/s)  (compile {t_c:.0f}s)",
@@ -79,18 +62,14 @@ def main():
     n = int(sys.argv[1]) if len(sys.argv) > 1 else 8192
     b = int(sys.argv[2]) if len(sys.argv) > 2 else 128
     reps = int(sys.argv[3]) if len(sys.argv) > 3 else 3
-    route = sys.argv[4] if len(sys.argv) > 4 else "auto"
     # defer / tp accept comma lists ("1,2,4") — the grid runs in ONE
     # process so the min-of-N numbers are same-process comparable
-    defers = [int(d) for d in (sys.argv[5] if len(sys.argv) > 5
+    defers = [int(d) for d in (sys.argv[4] if len(sys.argv) > 4
                                else "1").split(",")]
-    tps = (sys.argv[6] if len(sys.argv) > 6 else "highest").split(",")
-    routes = {"both": ["auto", "never"],
-              "combos": ["never", "sk", "pan", "auto"]}.get(route, [route])
-    for r in routes:
-        for tp in tps:
-            for defer in defers:
-                run(n, b, reps, r, defer, tp)
+    tps = (sys.argv[5] if len(sys.argv) > 5 else "highest").split(",")
+    for tp in tps:
+        for defer in defers:
+            run(n, b, reps, defer, tp)
 
 
 if __name__ == "__main__":

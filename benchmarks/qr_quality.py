@@ -12,10 +12,10 @@ Metrics per driver (CQRRPT / BQRRP explicit / BQRRP factored / HQRRP):
 
 Usage: python benchmarks/qr_quality.py [m] [n] [mat_type] [cond] [--chip]
 Defaults: 1000 800 polynomial 1e8, f64 on CPU (reference-grade analysis).
---chip: drivers run ON THE TPU in f32 (the production arithmetic —
-VERDICT r4 item 5); the yardsticks (f64 SVD + LAPACK geqp3) stay on the
-host CPU. Output JSON additionally lands in docs/pivot_quality_f32.json
-for the docs table.
+--chip: drivers run on the default accelerator in f32 (the production
+arithmetic); the yardsticks (f64 SVD + LAPACK geqp3) stay on the host
+CPU. The full results print as one JSON line at the end; a pivot-ratio
+outside ``randlapack_tpu.testing.PIVOT_RATIO_GATE`` exits non-zero.
 """
 import json
 import sys
@@ -40,18 +40,10 @@ from randlapack_tpu.gen import MatGenInfo, MatType, mat_gen  # noqa: E402
 from randlapack_tpu.drivers import (BQRRPConfig, CQRRPTConfig,  # noqa: E402
                                     HQRRPConfig, bqrrp, bqrrp_factored,
                                     bqrrp_q, cqrrpt, hqrrp)
+from randlapack_tpu.testing import (PIVOT_RATIO_GATE,  # noqa: E402
+                                    pivot_norm_ratios)
 
 hp = jax.lax.Precision.HIGHEST
-
-
-def trailing_norms(R):
-    """‖R[i:, i:]‖_F for every i (the reference's get_norms)."""
-    R = np.asarray(R)
-    n = min(R.shape)
-    sq = np.abs(np.triu(R[:n, :n])) ** 2
-    # suffix[i, j] = sum of sq[i:, j:]; trailing norm i = sqrt(suffix[i,i])
-    suffix = np.flip(np.flip(sq, (0, 1)).cumsum(0).cumsum(1), (0, 1))
-    return np.sqrt(np.diag(suffix))
 
 
 def analyze(name, Q, R, J, A, svals, R_qp3):
@@ -61,9 +53,7 @@ def analyze(name, Q, R, J, A, svals, R_qp3):
                 / np.linalg.norm(A))
     orth = float(np.linalg.norm(np.asarray(Q).T @ np.asarray(Q)
                                 - np.eye(K)))
-    tn_ours = trailing_norms(np.asarray(R)[:, :K])
-    tn_qp3 = trailing_norms(R_qp3)
-    ratio1 = tn_qp3[: K // 2] / np.maximum(tn_ours[: K // 2], 1e-300)
+    ratio1 = pivot_norm_ratios(R, R_qp3)
     d = np.abs(np.diag(np.asarray(R)[:K, :K]))
     ratio2 = d / np.maximum(svals[:K], 1e-300)
     rec = {
@@ -87,7 +77,7 @@ def main(argv):
     mt = MatType[argv[3]] if len(argv) > 3 else MatType.polynomial
     cond = float(argv[4]) if len(argv) > 4 else 1e8
     K = min(m, n)
-    arith = "f32 ON CHIP" if CHIP else "f64"
+    arith = f"f32 on {jax.devices()[0].device_kind}" if CHIP else "f64"
     print(f"[qr_quality] {m}x{n} {mt.value} cond={cond:g} ({arith})")
 
     dtype = jnp.float32 if CHIP else jnp.float64
@@ -125,19 +115,14 @@ def main(argv):
     payload = {"m": m, "n": n, "mat": mt.value, "cond": cond,
                "arithmetic": "f32_chip" if CHIP else "f64_cpu",
                "results": results}
-    out = "/tmp/qr_quality.json"
-    with open(out, "w") as f:
-        json.dump(payload, f, indent=2)
-    print(f"[qr_quality] wrote {out}")
-    if CHIP:
-        import os
-        doc = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                           "..", "docs", f"pivot_quality_f32_{m}x{n}_"
-                           f"{mt.value}_{cond:g}.json")
-        with open(doc, "w") as f:
-            json.dump(payload, f, indent=2)
-        print(f"[qr_quality] wrote {doc}")
+    lo, hi = PIVOT_RATIO_GATE
+    bad = [k for k, r in results.items()
+           if not lo <= r["pivot_norm_ratio_min"] <= r["pivot_norm_ratio_max"]
+           <= hi]
+    payload["pivot_gate_failed"] = bad
+    print(json.dumps(payload))
+    return 1 if bad else 0
 
 
 if __name__ == "__main__":
-    main(sys.argv)
+    sys.exit(main(sys.argv))

@@ -6,7 +6,7 @@ bench_ABRIK/ABRIK_runtime_breakdown.cc) driven through the drivers'
 
 Usage: python benchmarks/runtime_breakdown.py [driver] [m] [n]
   driver ∈ {bqrrp, bqrrp_factored, hqrrp, cqrrpt, cqrrt, abrik, all}
-Runs on the default backend (the real TPU here); phases synchronize, so
+Runs on the default backend; phases synchronize, so
 totals exceed the fused-graph wall time — use the speed CLIs for
 end-to-end numbers.
 """

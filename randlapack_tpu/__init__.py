@@ -1,4 +1,4 @@
-"""randlapack_tpu — a TPU-native randomized numerical linear algebra framework.
+"""randlapack_tpu — a randomized numerical linear algebra framework in JAX.
 
 Built from scratch in JAX/XLA/Pallas with capability parity to
 BallisticLA/RandLAPACK (see SURVEY.md): a sketching substrate with
@@ -8,7 +8,7 @@ KRILL, CholQR-over-linops), over a jit-traceable linear-operator protocol.
 
 Design stance (SURVEY.md §7): functional JAX core — pure functions,
 state-in/state-out PRNG, frozen dataclass configs mirroring the reference's
-"algorithms as objects" tuning surface, static shapes under jit, MXU-first
+"algorithms as objects" tuning surface, static shapes under jit, GEMM-first
 kernels (CholQR instead of column Householder wherever stability allows).
 """
 from .rng import RNGState, as_state

@@ -3,7 +3,7 @@
 block modes, posm_square :232, psd_sqrt_pinv :181, pcg_saddle :19,
 StatefulFrobeniusNorm :140).
 
-TPU design: lax.while_loop with a convergence *mask* — converged columns
+Design: lax.while_loop with a convergence *mask* — converged columns
 freeze (the reference's lockstep mode zeroing off-diagonal scalars,
 :418-440, is exactly per-column masked CG); residual history is a
 preallocated (max_iters, s) array. Everything jit-traceable.
@@ -154,7 +154,9 @@ def pcg(G, H: jax.Array, N, X0: jax.Array, cfg: PCGConfig,
             tol = jnp.maximum(jnp.max(jnp.abs(w)), 0.0) * s * jnp.finfo(dtype).eps
             winv = jnp.where(jnp.abs(w) > tol, 1.0 / jnp.where(w != 0, w, 1.0),
                              0.0)
-            return U @ (winv[:, None] * (U.T @ B))
+            hp = STABLE_PRECISION
+            return jnp.matmul(U, winv[:, None] * jnp.matmul(
+                U.T, B, precision=hp), precision=hp)
 
         return jax.lax.cond(ok, chol_solve, pinv_solve, None)
 

@@ -10,8 +10,8 @@ preconditioner M (A·M near-orthonormal) convergence takes O(log 1/tol)
 iterations, independent of κ(A).
 
 Precision note: the advantage materializes in f64 (measured 1000× better
-x-error than pcg_saddle at κ=1e8). In f32 on TPU the Givens recurrences
-and the preconditioner quality dominate — prefer the pcg path there.
+x-error than pcg_saddle at κ=1e8). In f32 the Givens recurrences and
+the preconditioner quality dominate.
 """
 from __future__ import annotations
 

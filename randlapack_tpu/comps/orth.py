@@ -58,14 +58,14 @@ def stabilize(A: jax.Array, method: Stab = Stab.plu,
     iterations where orthonormality is unnecessary (reference PLUL,
     rl_orth.hh:212-230: getrf → unit-lower L). Returns ``(B, fail)``."""
     if method == Stab.plu:
-        # TPU LU wedges the worker on Inf operands (drivers/bqrrp.py::
-        # _sanitize_sketch): sanitize and raise the flag instead
+        # non-finite operands carry no pivot information (drivers/
+        # bqrrp.py::_sanitize_sketch): sanitize and raise the flag instead
         finite = jnp.isfinite(A)
         bad = ~jnp.all(finite)
         A = jnp.where(finite, A, 0.0)
         # structural-deficiency pad (see ops/qr.py::lu_pivot_columns):
-        # keep every elimination pivot nonzero so the TPU kernel never
-        # generates 0/0 internally. δ = 2^(e_max−40) is an exact power of
+        # keep every elimination pivot nonzero so the LU never generates
+        # 0/0 internally. δ = 2^(e_max−40) is an exact power of
         # two BELOW f32 eps relative to the data scale — invisible to the
         # stabilized basis, only lifts exact-zero pivot structure.
         from ..ops.cholqr import _pow2

@@ -66,8 +66,8 @@ def right_precond_saso(A: jax.Array, d: int, mu, state: RNGState,
     rpc_data_svd_saso → make_right_orthogonalizer, plus an optional
     one-pass CholQR *refinement* of M against the sketch Gram.
 
-    Refinement rationale: on TPU the sketch SVD runs through the Gram/eigh
-    route (ops/svd.py), whose singular vectors carry ~√eps subspace error
+    Refinement rationale: when the sketch SVD runs through the Gram/eigh
+    route (ops/svd.py), its singular vectors carry ~√eps subspace error
     in the trailing cluster — enough to lift κ(A·M) well above the
     subspace-embedding bound and slow PCG (measured 47 vs 19 iterations
     on the 100000×2000 BASELINE config). One Cholesky pass on

@@ -2,7 +2,7 @@
 :18, QB::call :134 — grow Q,B by b_sz columns per iteration, Gram-Schmidt
 re-orth against previous blocks, Frobenius error tracking, early stop).
 
-TPU redesign (SURVEY.md §7 "dynamic shapes"): outputs are preallocated at
+Design (SURVEY.md §7 "dynamic shapes"): outputs are preallocated at
 max rank k and filled blockwise inside one jitted fori_loop — no realloc
 growth. Adaptive termination is done by the caller from the returned
 per-block error vector (``qb`` helper), keeping the hot loop fully static.
@@ -49,8 +49,9 @@ def qb_blocked(A: jax.Array, k: int, cfg: QBConfig, state: RNGState,
     # errs starts at a 2.0 sentinel (> any relative error) so block 0 can
     # read errs[-1 -> 0] as its "previous error" WITHOUT comparing the
     # loop induction variable: scalar predicates on the fori_loop index
-    # (i > 0) are hoisted as loop-invariant and MISCOMPILE on this TPU
-    # backend (evaluate True at i=0); array-vs-index comparisons are fine.
+    # (i > 0) were hoisted as loop-invariant and miscompiled by an earlier
+    # backend (evaluated True at i=0); array-vs-index comparisons are
+    # safe everywhere (ROADMAP D2 re-measures the workaround).
     errs = jnp.full((nblocks,), 2.0, A.dtype)
 
     # fori_loop-safe RNG: per-block independent streams branched off `state`

@@ -4,7 +4,7 @@ of arXiv:2304.12465). The operator is accessed only through column
 evaluations and its diagonal — exactly the access pattern of kernel
 matrices in KRILL.
 
-TPU redesign: fixed block size b, one jitted fori_loop over k/b blocks.
+Design: fixed block size b, one jitted fori_loop over k/b blocks.
 Within-block duplicate pivots (iid CDF sampling can repeat) are resolved by
 a scatter-winner mask + eigh-based pseudo-inverse square root of the block
 Gram — numerically equivalent to the reference's dedup + potrf/trsm, but
@@ -67,8 +67,8 @@ def rp_cholesky(A, k: int, cfg: RPCholConfig, state: RNGState,
         if cfg.sampling == "gumbel":
             # exact without-replacement: argtop-b of log d + Gumbel noise
             g = jax.random.gumbel(key, (n,), dtype=dtype)
-            # finite floor, NOT -inf (inf constants inside fori_loop
-            # miscompile to 0 on this TPU backend): -1e30 + Gumbel noise
+            # finite floor, NOT -inf (an earlier backend miscompiled inf
+            # constants inside fori_loop to 0): -1e30 + Gumbel noise
             # still loses to every live weight
             logd = jnp.where(d > 0, jnp.log(jnp.where(d > 0, d, 1.0)),
                              -1e30)

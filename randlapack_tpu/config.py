@@ -1,17 +1,18 @@
 """Global numerics configuration for randlapack_tpu.
 
 The reference library (RandLAPACK) is templated on float/double and inherits
-precision from the BLAS it links. On TPU the analogous knobs are the array
-dtype and the XLA matmul `precision` (how many bf16 MXU passes emulate f32).
+precision from the BLAS it links. Here the analogous knobs are the array
+dtype and the XLA matmul `precision` (on a GPU, f32 at DEFAULT may run in
+TF32; HIGHEST keeps full f32).
 
 Policy:
   * dtype is always taken from the input arrays — the library is dtype-generic.
   * Gram-matrix / orthogonalization matmuls default to ``Precision.HIGHEST``
-    (full f32 emulation on MXU) because CholeskyQR stability is
+    (full f32) because CholeskyQR stability is
     precision-critical (see SURVEY.md §7 "Hard parts").
-  * Sketch-apply matmuls default to ``Precision.DEFAULT`` — randomized
-    sketches tolerate low precision (the sketch itself is a random
-    perturbation at the ~1/sqrt(d) level).
+  * Sketch-apply matmuls use ``SKETCH_PRECISION``, currently also
+    ``Precision.HIGHEST``; randomized sketches would tolerate lower
+    precision (ROADMAP S2 measures it per call site).
 """
 from __future__ import annotations
 

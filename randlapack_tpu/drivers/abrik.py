@@ -4,7 +4,7 @@ A.1 variant of arXiv:2306.12418): alternating A·V / Aᵀ·U block Lanczos
 bidiagonalization with full two-pass re-orthogonalization, band matrix of
 QR coefficients, final small SVD of the band factor.
 
-TPU redesign (SURVEY.md §7): the reference's realloc-grown bases become
+Design (SURVEY.md §7): the reference's realloc-grown bases become
 preallocated (m, q·b) buffers filled through a lax.fori_loop —
 re-orthogonalizing against not-yet-filled zero columns is a no-op, so the
 whole factorization is one static jitted graph. Termination diagnostics
@@ -145,7 +145,7 @@ def abrik_factor(A, state: RNGState, cfg: ABRIKConfig,
     # rl_abrik.hh:454,595: stop once ‖B‖_F ≥ √(1−tol²)·‖A‖_F). Tested in
     # GAP form — ‖A‖² − ‖B‖² ≤ eff_tol²·‖A‖² — because the direct form
     # rounds to cap ≥ ‖A‖_F for any tol < √ulp(1) (f32: tol=1e-5 gives
-    # √(1−1e-10) = 1.0 exactly, so the chip never certifiably crossed it
+    # √(1−1e-10) = 1.0 exactly, so an f32 run never certifiably crossed it
     # and easy spectra ran all max_iters). The gap itself is only
     # resolvable down to a few ulps of ‖A‖², so eff_tol² gets an eps
     # floor: requesting tol < √(32·eps) means "stop when the capture is
@@ -228,7 +228,7 @@ def abrik_factor(A, state: RNGState, cfg: ABRIKConfig,
         stopped = stopped | (norm_A2 - cap_j * cap_j <= gap_thresh)
         return U, V, B, capture, stopped, j + 1
 
-    # platform default int (int64 under x64 tests, int32 on chip) so the
+    # platform default int (int64 under x64, int32 without) so the
     # dynamic_slice index arithmetic stays one type
     U, V, B, capture, _, j_end = jax.lax.while_loop(
         cond, body,

@@ -7,7 +7,7 @@ via LU pivots (``luqr``), pivot the trailing matrix, tall QR of the panel
 (CholQR with sketch-R preconditioning), apply Qᵀ to the trailing matrix,
 and *downdate* the sketch instead of re-sketching (:630-650).
 
-TPU redesign:
+Design:
   * Explicit-Q accumulation — the panel bases are orthogonalized against
     the running Q by the trailing update (+ optional BCGS2 pass), so
     Q = [Q₁ | Q₂ | …] directly; no Householder tau/orhr_col machinery
@@ -15,9 +15,10 @@ TPU redesign:
     pass on the finished Q restores machine-grade orthogonality.
   * Static shapes: one jitted lax.fori_loop over blocks. Column
     retirement is MASK-based — chosen pivots stay in place behind a
-    retired mask (full-width column-permutation gathers measured ~90 GB/s
-    on TPU, rivaling the trailing GEMMs); a single permutation per stage
-    restores the positional layout for the next window and the outputs.
+    retired mask (two full-width column-permutation gathers per block
+    would move as many bytes as the trailing GEMMs); a single permutation
+    per stage restores the positional layout for the next window and the
+    outputs.
   * ``stages > 1`` splits the column space into S statically-shrinking
     windows (a host loop of S jitted stage graphs): trailing updates and
     sketch downdates then run at the window width instead of full n,
@@ -33,7 +34,7 @@ TPU redesign:
     is O(ε·‖A‖·κ(R₁₁)): below pivot-selection resolution, and the
     factorization itself is unaffected (the exact panel block of R is
     written from R₁₁, not the sketch). Tracking it exactly would cost a
-    d×K GEMM per block in a chain that is op-latency-bound on TPU.
+    d×K GEMM per block.
 """
 from __future__ import annotations
 
@@ -54,7 +55,7 @@ from ..ops import util
 
 
 class QRTall(enum.Enum):
-    cholqr = "cholqr"     # sketch-preconditioned CholQR (default, MXU)
+    cholqr = "cholqr"     # sketch-preconditioned CholQR (default, GEMM)
     hqr = "hqr"           # Householder panel QR (more robust, slower)
 
 
@@ -80,15 +81,10 @@ class BQRRPConfig:
     pivot_candidates: int | None = None
                                   # preselect this many × block_size top-norm
                                   # sketch columns before the LU pivot pass
-                                  # (XLA's LU is far off roofline; running it
-                                  # on 4b candidates instead of all active
-                                  # columns is ~8× cheaper with near-
+                                  # (the LU then runs on pc·b columns
+                                  # instead of all active ones, with near-
                                   # identical pivot quality). None = faithful
                                   # full-width LU (the reference's luqr).
-    pallas_trailing: str = "auto" # factored form only: route the masked
-                                  # WY trailing update through the fused
-                                  # Pallas kernels (ops/pallas_wy.py) on
-                                  # TPU when shapes divide; "never" = jnp
     sketch_r: str = "auto"        # factored form: how the panel
                                   # preconditioner R_sk is computed from
                                   # the sketch panel Ysk_p. "gram" =
@@ -106,21 +102,19 @@ class BQRRPConfig:
                                   # and the group-end A −= V·Z; explicit:
                                   # the A_work −= Q·T GEMM only (T = QᵀA
                                   # becomes R rows and stays at driver
-                                  # precision). "highest" = f32 MXU (status
-                                  # quo); "default" = XLA default
-                                  # precision (bf16_3x on TPU, 30.5 vs
-                                  # 17.2 TF/s measured — VERDICT r4
-                                  # mixed-precision experiment);
+                                  # precision). "highest" = the driver
+                                  # precision; "high" = lax.Precision.HIGH;
+                                  # "default" = XLA default precision
+                                  # (TF32 on a GPU);
                                   # "bf16_3x_emul" = explicit bf16-split
-                                  # emulation of the TPU default, for
+                                  # three-product emulation, for
                                   # CPU-side quality studies. Panel math,
                                   # R11/R12 extraction corrections, and
                                   # the sketch downdate stay at the
                                   # driver ``precision`` in every mode.
     update_defer: int = 1         # both forms: aggregate this many
                                   # consecutive blocks' rank-b trailing
-                                  # updates (the thin-k V·Z GEMMs, the
-                                  # measured loop bottleneck at b=512) and
+                                  # updates (the thin-k V·Z GEMMs) and
                                   # apply them as ONE k = defer·b GEMM.
                                   # Panel math stays at block_size — the
                                   # within-group corrections are lazy
@@ -130,41 +124,16 @@ class BQRRPConfig:
                                   # repaid by the wide-k GEMM shape)
 
 
-def _lu_pivots_unavailable(dtype):
-    """XLA's TPU LU kernel is f32-only: under ``jax_enable_x64`` the
-    lowering silently degrades (or fails) instead of computing f64
-    pivots. Detected at trace time; BQRRP then routes pivot selection
-    through the Householder QRCP panel (``ops.qr.qrcp_select_pivots`` —
-    the HQRRP selection kernel), keeping the driver correct in x64 at a
-    pivot-selection speed penalty (documented CLAUDE.md caveat, now
-    code)."""
-    return dtype == jnp.float64 and jax.default_backend() not in ("cpu",)
-
-
 def _select_pivots(Y_m, b, retired, cfg: BQRRPConfig, dtype, precision):
     """The per-block qrcp_wide pivot pass: LU partial pivoting on the
     masked sketch (rl_bqrrp.hh luqr), optionally restricted to top-norm
-    candidate columns; Householder QRCP when TPU LU can't do the dtype."""
+    candidate columns."""
     n = Y_m.shape[1]
-    live = 1.0 - retired
-    # belt over the sanitized downdate: the TPU LU kernel wedges the
-    # worker on Inf operands (see _sanitize_sketch), so the pivot pass
-    # must never see one — zeroed columns are handled by _fix_pivots
+    # non-finite entries carry no pivot information (the sanitized
+    # downdate already zeroes them; zeroed columns go to _fix_pivots)
     Y_m = jnp.where(jnp.isfinite(Y_m), Y_m, 0.0)
-    if _lu_pivots_unavailable(dtype):
-        from ..ops.qr import qrcp_select_pivots
-        if cfg.pivot_candidates is not None:
-            n_cand = min(n, cfg.pivot_candidates * b)
-            norms2 = jnp.sum(Y_m * Y_m, axis=0)
-            _, cand = jax.lax.top_k(norms2, n_cand)
-            sub = jnp.take(Y_m, cand, axis=1)
-            sub_chosen = qrcp_select_pivots(
-                sub, b, jnp.ones((n_cand,), dtype), precision)
-            return jnp.take(cand, sub_chosen)
-        return qrcp_select_pivots(Y_m, b, live, precision)
-    # route through ops.qr.lu_pivot_columns: it carries the finite guard
-    # AND the structural-deficiency pad (exact-zero pivots inside the TPU
-    # LU kernel are the r3 "second fault path" suspect)
+    # lu_pivot_columns carries the finite guard AND the structural-
+    # deficiency pad that keeps every elimination pivot nonzero
     from ..ops.qr import lu_pivot_columns
     if cfg.pivot_candidates is not None:
         n_cand = min(n, cfg.pivot_candidates * b)
@@ -210,20 +179,52 @@ def _fix_pivots(chosen, retired):
                         (chosen, valid))
 
 
+def bf16_3x_matmul(X, Y):
+    """X·Y by explicit bf16 splitting: each operand becomes a bfloat16
+    high part plus a bfloat16 residual, and the three dominant cross
+    products run with bf16 inputs and f32 accumulation. Used for
+    CPU-side quality studies of mixed-precision trailing updates
+    (``trailing_precision="bf16_3x_emul"``): on the CPU every f32
+    precision is true f32, so a lossy product has to be emulated to be
+    measured."""
+    dtype = X.dtype
+    xh = X.astype(jnp.bfloat16)
+    xl = (X - xh.astype(dtype)).astype(jnp.bfloat16)
+    yh = Y.astype(jnp.bfloat16)
+    yl = (Y - yh.astype(dtype)).astype(jnp.bfloat16)
+
+    def f(a, b):
+        return jnp.matmul(a, b, preferred_element_type=jnp.float32)
+
+    return (f(xh, yh) + (f(xh, yl) + f(xl, yh))).astype(dtype)
+
+
 def _tp_matmul(X, Y, trailing_precision, precision):
     """X·Y at the configured trailing precision (see
     BQRRPConfig.trailing_precision): "highest" = driver precision,
-    "high" = lax.Precision.HIGH (bf16_6x on TPU), "default" = XLA
-    default (bf16_3x on TPU), "bf16_3x_emul" = explicit emulation for
-    CPU quality studies."""
+    "high" = lax.Precision.HIGH, "default" = XLA default (TF32 on a GPU),
+    "bf16_3x_emul" = explicit emulation for CPU quality studies."""
     if trailing_precision == "highest":
         return jnp.matmul(X, Y, precision=precision)
     if trailing_precision == "default":
         return jnp.matmul(X, Y, precision=None)
     if trailing_precision == "high":
         return jnp.matmul(X, Y, precision=jax.lax.Precision.HIGH)
-    from ..ops.pallas_wy import bf16_3x_matmul
     return bf16_3x_matmul(X, Y)
+
+
+def masked_vt_a_mixed(V, A, mask, trailing_precision, precision):
+    """W = Vᵀ·(A ⊙ mask) at the configured trailing precision — the
+    factored form's masked trailing projection (the mask is an
+    elementwise producer that XLA fuses into the GEMM)."""
+    return _tp_matmul(V.T, A * mask[None, :], trailing_precision, precision)
+
+
+def a_minus_vz_masked_mixed(A, V, Z, mask, trailing_precision, precision):
+    """A − (V·Z) ⊙ mask at the configured trailing precision — the
+    factored form's group-end trailing update."""
+    return A - _tp_matmul(V, Z, trailing_precision,
+                          precision) * mask[None, :]
 
 
 def _sanitize_sketch(Y, fail, dtype):
@@ -232,11 +233,9 @@ def _sanitize_sketch(Y, fail, dtype):
     The trsm sketch downdate solves against a diagonal-clamped R11; on a
     numerically deficient panel each block can amplify the live sketch
     columns by ~1/clamp, and a few consecutive deficient blocks overflow
-    f32 to Inf. XLA's TPU LuDecomposition kernel HANGS/KILLS the worker
-    on Inf inputs (measured on this backend: a single Inf in a 2048×640
-    operand wedges the chip; NaN and huge-but-finite values are fine), so
-    the next block's pivot pass would take down the device instead of
-    degrading gracefully.
+    f32 to Inf. An Inf in the sketch would poison the next block's LU
+    pivot pass, so the driver keeps the sketch finite and degrades
+    gracefully instead.
 
     Two safeguards, both exact no-ops on healthy data:
       * non-finite entries → 0 with ``fail`` raised (the repo convention:
@@ -295,18 +294,16 @@ def _stage(A_loc, A_sk_loc, Q, R_loc, J_loc, fail, cfg: BQRRPConfig,
     Qp = Q[:, :q_hi]
 
     # Column retirement is MASK-based inside the stage: full-width column
-    # permutations (two m×w gathers per block) run at only ~90 GB/s on TPU
-    # and cost as much as the trailing GEMMs, so instead the chosen pivots
+    # permutations (two m×w gathers per block) would move as many bytes as
+    # the trailing GEMMs, so instead the chosen pivots
     # stay in place, a `retired` mask excludes them, and ONE permutation at
     # the stage end restores the positional invariant the next (narrower)
     # stage window relies on.
     #
     # NO dynamic-index 2D column scatters (`X.at[:, chosen].set/add`)
-    # anywhere in the block loop: this backend's TPU runtime kills the
-    # worker process on some block-width column scatters (r4 minimal
-    # repro: zeros((2048,2048)).at[:, arange(512)].add(zeros((2048,512)))
-    # — deterministic per program but allocator-context-dependent, so ANY
-    # such scatter is a latent device kill). The chosen columns' R
+    # anywhere in the block loop (a workaround kept from an earlier
+    # backend whose runtime crashed on block-width column scatters;
+    # ROADMAP D2 re-measures it). The chosen columns' R
     # contributions (BCGS2 proj + R11) are instead STACKED by block slot
     # via dynamic_update_slice into `patch` (selection-order layout) and
     # merged with ONE static-slice add after the stage-end permutation —
@@ -389,9 +386,8 @@ def _stage(A_loc, A_sk_loc, Q, R_loc, J_loc, fail, cfg: BQRRPConfig,
         if not deferred:
             # trailing A update at cfg.trailing_precision — T itself (the
             # R rows) always stays at the driver precision; only the
-            # rank-b A_work GEMM (half the trailing FLOPs) drops to the
-            # fast rate (bf16_3x on TPU), mirroring the factored form's
-            # measured-safe split
+            # rank-b A_work GEMM (half the trailing FLOPs) may drop to a
+            # faster precision, mirroring the factored form's split
             A_work = A_work - _tp_matmul(Q_panel, T,
                                          cfg.trailing_precision,
                                          precision)
@@ -647,22 +643,18 @@ def _wy_stage(A, Y, Vall, Ts, J_loc, fail, cfg: BQRRPConfig,
 
     ``cfg.update_defer = g > 1`` restructures the loop left-looking:
     blocks run in groups of g; within a group the rank-b ``V·(TᵀW)``
-    trailing GEMMs (thin-k, the measured bottleneck) are NOT applied —
+    trailing GEMMs (thin-k) are NOT applied —
     each block's panel/W/R12 reads the stale A plus an exact low-rank
     correction through the group aggregates (V_g, U_g), and the group
     ends with ONE k = g·b masked GEMM. Identical math to the eager loop
-    (the corrections are exact, not approximations), better MXU shapes.
+    (the corrections are exact, not approximations), wider GEMM shapes.
     """
-    from ..ops.pallas_wy import (masked_vt_a_mixed,
-                                 a_minus_vz_masked_mixed)
     m, n = A.shape
     b = bsz
     dtype = A.dtype
     rows = jnp.arange(m)
     order = jnp.zeros((nblocks * b,), jnp.int32)
     retired = jnp.zeros((n,), dtype)
-    _pallas = ("never" if cfg.shard_axis is not None
-               else cfg.pallas_trailing)
 
     def subblock(i, j, Vg, Ug, carry):
         """Block ``i`` (traced stage-local index) in group slot ``j``
@@ -728,8 +720,7 @@ def _wy_stage(A, Y, Vall, Ts, J_loc, fail, cfg: BQRRPConfig,
             failp = failp | f2
         # rescue 1: shifted CholQR3 (GEMM-form, survives ill-conditioning)
         # — LAZY: lax.cond executes only the taken branch, so the healthy
-        # path skips the 3-pass rescue chain entirely (measured ~1.1 ms/
-        # block of pure serial cost when it ran unconditionally)
+        # path skips the 3-pass rescue chain entirely
         Q_panel, R11, f_r = jax.lax.cond(
             failp,
             lambda pm, q, r: shifted_cholqr3(pm, precision),
@@ -756,8 +747,8 @@ def _wy_stage(A, Y, Vall, Ts, J_loc, fail, cfg: BQRRPConfig,
         # pass — substitute identity columns so outputs stay finite with
         # `fail` raised (repo convention: failure is a flag, never NaN)
         nanp = jnp.any(jnp.isnan(Q_panel)) | jnp.any(jnp.isnan(R11))
-        # compare-based identity pad (no scatter: this backend's TPU
-        # runtime can kill the worker on dynamic-index scatters)
+        # compare-based identity pad (no dynamic-index scatter, as in
+        # _stage's layout note)
         E_pad = (rows[:, None] == c + jnp.arange(b)[None, :]).astype(dtype)
         Q_panel = jnp.where(nanp, E_pad, Q_panel)
         R11 = jnp.where(nanp, 0.0, R11)
@@ -782,7 +773,7 @@ def _wy_stage(A, Y, Vall, Ts, J_loc, fail, cfg: BQRRPConfig,
 
         # -- W = Vᵀ·(A_true ⊙ live2); U = Tᵀ·W (update stays deferred) --
         W = masked_vt_a_mixed(V, A, live2, cfg.trailing_precision,
-                              precision, _pallas)
+                              precision)
         if j > 0:
             W = W - jnp.matmul(
                 jnp.matmul(V.T, Vg, precision=precision),
@@ -834,7 +825,7 @@ def _wy_stage(A, Y, Vall, Ts, J_loc, fail, cfg: BQRRPConfig,
             live_end = 1.0 - retired
             A = a_minus_vz_masked_mixed(A, Vg, Ug, live_end,
                                         cfg.trailing_precision,
-                                        precision, _pallas)
+                                        precision)
             return (A, Y, Vall, Ts, Fstk, order, retired, fail)
         return group
 
@@ -999,10 +990,8 @@ def bqrrp_q(fac: BQRRPFactors, k: int | None = None,
     Q from the factored form — the orgqr/ungqr analogue (cost ≈ 4·m·K·k
     flops; the reference likewise leaves this to the caller).
 
-    ``method="sequential"`` (default) applies the nb blocks one by one —
-    measured FASTER on the chip than the tree merge (8192²: 0.104 s vs
-    0.143 s; the (K, K) combined-T algebra costs more than the saved
-    per-block latency) and slightly better-conditioned. ``"tree"`` merges
+    ``method="sequential"`` (default) applies the nb blocks one by one
+    and is slightly better-conditioned. ``"tree"`` merges
     the block-WY factors pairwise into one reflector block (two full-size
     GEMMs) — kept for apply-many workloads where the merge amortizes."""
     m, _ = fac.V.shape

@@ -27,8 +27,7 @@ def _finite_gram(G):
     """Detection half of the Inf-kernel guard for operator-based Grams:
     the operand is a linop (no cheap global rescale), so a non-finite
     accumulated Gram is zeroed into the fail flag instead of reaching
-    the TPU Cholesky kernel (which wedges the worker on Inf — see
-    ops/cholqr.py::_finite_scaled)."""
+    the Cholesky (see ops/cholqr.py::_finite_scaled)."""
     finite = jnp.isfinite(G)
     return jnp.where(finite, G, 0.0), ~jnp.all(finite)
 
@@ -216,7 +215,7 @@ def scholqr3_linops(A, cfg: CholQRLinopsConfig = CholQRLinopsConfig(),
         # fresh Gram of the chain-preconditioned operator per cleanup pass.
         # Every pass is shifted: at large m the Gram's accumulation error
         # (~√m·eps) can exceed the preconditioned min-eigenvalue and turn
-        # G2 numerically indefinite (observed on TPU at m=65536 in f32) —
+        # G2 numerically indefinite (observed at m=65536 in f32) —
         # the trace-relative shift keeps Cholesky alive at the cost of a
         # per-pass O(eps·n) orthogonality floor.
         G2 = blocked_gram_precond(A, chain, cfg.gram_block, precision)

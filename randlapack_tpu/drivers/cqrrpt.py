@@ -8,7 +8,7 @@
     4. pivot A, precondition A·R_sk⁻¹, CholQR               [:287-332]
     5. un-precondition R = R_chol·R_sk                      [:338-345]
 
-TPU redesign: all static shapes — the rank estimate is *returned* rather
+Design: all static shapes — the rank estimate is *returned* rather
 than used to shrink arrays (callers slice on host); the QRCP-on-sketch
 subroutine is selectable (scan-based geqp3, HQRRP, or BQRRP for bigger n).
 ``timing=True`` reproduces the reference's 8-slot timing vector
@@ -54,15 +54,12 @@ class CQRRPTConfig:
     bqrrp_trailing_precision: str = "highest"
                                   # sketch-BQRRP trailing-update GEMM
                                   # precision (drivers/bqrrp.py knob) —
-                                  # the qrcp phase is the warm
-                                  # breakdown's biggest slice and its
-                                  # trailing A_work GEMM does not touch
-                                  # the R rows used as the preconditioner
+                                  # its trailing A_work GEMM does not
+                                  # touch the R rows used as the
+                                  # preconditioner
     bqrrp_update_defer: int = 1   # sketch-BQRRP aggregated trailing
-                                  # updates (k = defer·b GEMMs — the
-                                  # sketch QRCP is the warm breakdown's
-                                  # biggest slice and its b=256 trailing
-                                  # GEMMs are thin)
+                                  # updates (k = defer·b GEMMs instead
+                                  # of thin b-wide ones)
     eps_rank: float | None = None  # rank-estimate threshold (None → machine)
     orthogonalization: bool = False  # complete a rank-deficient basis to a
                                      # full orthonormal Q with projected
@@ -70,14 +67,12 @@ class CQRRPTConfig:
     q_form: str = "inverse"       # how Q = A_pre·L⁻ᵀ is formed in the
                                   # CholQR phase: "inverse" inverts the
                                   # n×n Cholesky factor (tiny trsm vs I)
-                                  # and applies it as ONE m×n GEMM at MXU
-                                  # rate; "trsm" is the classic m×n
-                                  # triangular solve (XLA trsm runs at
-                                  # ~40% of GEMM rate on this chip). L is
-                                  # the factor of the PRECONDITIONED Gram
-                                  # — κ(L) ≈ sketch distortion = O(1) —
-                                  # so the explicit inverse loses nothing
-                                  # (chip-measured r5: same res/orth)
+                                  # and applies it as ONE m×n GEMM;
+                                  # "trsm" is the classic m×n triangular
+                                  # solve. L is the factor of the
+                                  # PRECONDITIONED Gram — κ(L) ≈ sketch
+                                  # distortion = O(1) — so the explicit
+                                  # inverse loses nothing
     gram_block: int = 512         # >0: compute the CholQR Gram with
                                   # ops/cholqr.py::gram_syrk at this
                                   # column-block size — only the upper-
@@ -85,9 +80,6 @@ class CQRRPTConfig:
                                   # saving the reference gets from
                                   # cblas_syrk, rl_cqrrpt.hh:310; 5/8 of
                                   # the full GEMM's flops at 4 blocks).
-                                  # Chip-measured r5 at 131072×2048:
-                                  # 0.187 s vs 0.199 s full-GEMM, same
-                                  # res/orth (256 ties, 1024 worse).
                                   # 0 = one full AᵀA GEMM; shapes that
                                   # don't block evenly fall back to it
     trsm_mode: str = "xla"        # a_mod_trsm implementation: "xla" =
@@ -96,7 +88,7 @@ class CQRRPTConfig:
                                   # inverse trsm (ops/trsm.py — inverts
                                   # only the b×b diagonal blocks of
                                   # R_sk, back-substitution recurrence
-                                  # as MXU GEMMs, the cuBLAS/MAGMA
+                                  # as GEMMs, the cuBLAS/MAGMA
                                   # restructure). blockinv amplifies by
                                   # κ(diag block) ≈ κ(R)^(b/n) instead
                                   # of being backward-stable — fine for
@@ -144,10 +136,9 @@ def _qrcp_phase(A_sk, cfg: CQRRPTConfig, state, precision):
     else:
         # the EXPLICIT driver on purpose: its final-orth pass re-couples
         # R to an orthonormalized Q at working precision, which matters
-        # here because R_sk becomes the CholQR preconditioner — measured
-        # on the chip, the factored form's R (no final-orth) degrades the
-        # final orthogonality 9.8e-5 -> 2.3e-3 at 131072x2048 f32 for no
-        # speed gain (0.206 s vs 0.204 s)
+        # here because R_sk becomes the CholQR preconditioner — the
+        # factored form's R (no final-orth) degraded the final
+        # orthogonality 9.8e-5 -> 2.3e-3 at 131072x2048 f32
         from .bqrrp import BQRRPConfig, bqrrp
         _, R_sk, J, _, _, state = bqrrp(
             A_sk, BQRRPConfig(block_size=cfg.bqrrp_block,
@@ -213,7 +204,7 @@ def _trsm_phase_gather(A, J, R_sk_safe, keep, block=256, precision=None):
 def _cholqr_gram(A_pre, keep, precision, gram_block=0):
     # band guard (ops/cholqr.py::_finite_scaled): the trsm against the
     # clamped R_sk diagonal can leave huge/Inf columns on deficient
-    # inputs, and a Gram overflow would reach the TPU Cholesky kernel
+    # inputs, and a Gram overflow would reach the Cholesky
     from ..ops.cholqr import _finite_scaled, gram_syrk
     A_pre, s, nonfin = _finite_scaled(A_pre)
     if gram_block > 0:
@@ -228,7 +219,7 @@ def _cholqr_qform(A_pre, L, q_form, precision):
     if q_form == "inverse":
         # L factors the PRECONDITIONED Gram: κ(L) ~ the sketch distortion,
         # O(1) — the explicit n×n inverse is backward-stable here and the
-        # m×n application rides the MXU instead of XLA's slower trsm
+        # m×n application is one GEMM instead of a trsm
         n = A_pre.shape[1]
         Linv_t = jax.lax.linalg.triangular_solve(
             L.T, jnp.eye(n, dtype=A_pre.dtype), left_side=True,

@@ -3,8 +3,8 @@ RandLAPACK/drivers/rl_cqrrt.hh: CQRRTalg :21, CQRRT::call :123; algorithm
 of arXiv:2111.11148): sketch A, QR the small sketch, use its R as a right
 preconditioner so one CholQR pass orthogonalizes even ill-conditioned A.
 
-TPU-first: the sketch is SASO (scatter-add) or SRHT (MXU); the Gram matrix
-is one big MXU matmul. Everything is one jitted graph; ``timing=True``
+Design: the sketch is SASO (scatter-add) or SRHT (GEMM-based); the Gram
+matrix is one big matmul. Everything is one jitted graph; ``timing=True``
 reproduces the reference's 10-slot timing vector (rl_cqrrt.hh:258-280:
 saso / qr / precond / gram / potrf / q / finalize / total) as named
 phases with device syncs in between.

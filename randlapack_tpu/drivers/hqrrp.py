@@ -16,12 +16,12 @@ A genuinely distinct driver from BQRRP — per block of ``b`` columns:
      Householder reconstruction (``CHOLQR_mod_WY`` :506 — the orhr_col
      path).
   3. Compact-WY trailing update A ← QᵀA on the live columns
-     (``NoFLA_Apply_Q_WY_lhfc_blk_var4`` :300) — two GEMMs on the MXU.
+     (``NoFLA_Apply_Q_WY_lhfc_blk_var4`` :300) — two GEMMs.
   4. Sketch *downdating* instead of re-sketching (``NoFLA_Downdate_Y``
      :207): G ← G·Q_blk, then Y₂ ← Y₂ − G_new[:, c:c+b]·R₁₂ — the exact
      WY algebra, so Y stays the exact sketch of the trailing residual.
 
-TPU redesign notes:
+Design notes:
   * Static shapes: mask-based column retirement (chosen pivots stay in
     place behind a ``retired`` mask), one permutation at the end; the
     reference's three-matrix lockstep swaps become gathers/scatters of
@@ -65,19 +65,6 @@ class HQRRPConfig:
     block_size: int = 64
     oversample: int = 10          # the reference's pp (sketch rows = b+pp)
     panel_qr: PanelQR = PanelQR.qrcp
-    pallas_qrcp: str = "never"    # "auto" = run the per-block sketch
-                                  # QRCP as one VMEM-resident Pallas
-                                  # kernel on TPU/f32
-                                  # (ops/pallas_qrcp.py); "never" = the
-                                  # jnp fori_loop. Measured at 8192^2
-                                  # b=128 (r3 same-process combos
-                                  # sweep): never 0.499s < sk-kernel
-                                  # 0.524 < panel-kernel 0.581 — XLA's
-                                  # fused loop beats both kernels, so
-                                  # both default off (same verdict as
-                                  # ops/pallas_wy.py's masked-WY)
-    pallas_panel: str = "never"   # same switch for the (m, b) panel
-                                  # factorization kernel
     shard_axis: str | None = None  # mesh axis to row-shard the tall dim
                                    # over (set by dist_hqrrp): A and the
                                    # sketch operator G stay sharded, the
@@ -85,9 +72,9 @@ class HQRRPConfig:
     trailing_precision: str = "highest"
                                   # precision of the trailing-update GEMMs
                                   # (Wk = VᵀA and the A −= V·U update, the
-                                  # FLOP bulk at b=128): "highest" = f32
-                                  # MXU; "default" = XLA default (bf16_3x
-                                  # on TPU, 1.77x GEMM rate);
+                                  # FLOP bulk at b=128): "highest" = the
+                                  # driver precision; "default" = XLA
+                                  # default (TF32 on a GPU);
                                   # "bf16_3x_emul" = explicit emulation
                                   # for CPU quality studies. Panel math,
                                   # pivots, and the exact sketch downdate
@@ -98,11 +85,10 @@ class HQRRPConfig:
                                   # compact-WY trailing updates and apply
                                   # them as ONE k = defer·b GEMM (the same
                                   # left-looking telescoping as
-                                  # bqrrp.BQRRPConfig.update_defer): at the
-                                  # speed-optimal b = 128 the per-block
-                                  # trailing GEMMs are 4x thinner than the
-                                  # BQRRP headline's, so widening k is
-                                  # worth real shape efficiency here.
+                                  # bqrrp.BQRRPConfig.update_defer): at
+                                  # b = 128 the per-block trailing GEMMs
+                                  # are thin, so widening k improves their
+                                  # shape.
                                   # Pivot selection, panel math and the
                                   # exact sketch downdate still run per
                                   # block on lazily-corrected operands.
@@ -127,8 +113,8 @@ def _cholqr_panel(panel, row0, precision):
     # finite): substitute identity columns at the panel offset so the
     # reconstruction and downstream WY algebra remain well-defined
     nanp = jnp.any(~jnp.isfinite(Qp)) | jnp.any(~jnp.isfinite(R_chol))
-    # compare-based identity pad (no dynamic-index scatter: this
-    # backend's TPU runtime can kill the worker on block-width scatters)
+    # compare-based identity pad (no dynamic-index scatter — see the
+    # layout note in bqrrp._stage)
     E_pad = (rows[:, None] == row0 + cols[None, :]).astype(dtype)
     Qp = jnp.where(nanp, E_pad, Qp)
     R_chol = jnp.where(nanp, 0.0, R_chol)
@@ -220,9 +206,7 @@ def _hqrrp_subblock_deferred(carry, c, bsz, j: int, Vg, Ug, Hg,
     live = 1.0 - retired
 
     # 1. pivots from the exact (per-block downdated) sketch
-    from ..ops.pallas_qrcp import qrcp_select_pivots_routed
-    chosen = qrcp_select_pivots_routed(Y, bsz, live, precision,
-                                       use_pallas=cfg.pallas_qrcp)
+    chosen = qrcp_select_pivots(Y, bsz, live, precision)
 
     # 2. panel factorization on the lazily-corrected true panel
     panel = jnp.take(A, chosen, axis=1)
@@ -232,15 +216,14 @@ def _hqrrp_subblock_deferred(carry, c, bsz, j: int, Vg, Ug, Hg,
     if cfg.panel_qr == PanelQR.cholqr:
         W, V, taus, sigma, failp = _cholqr_panel(panel, c, precision)
     else:
-        from ..ops.pallas_qrcp import qrcp_panel_routed
-        W, V, taus, sigma = qrcp_panel_routed(
+        W, V, taus, sigma = qrcp_panel(
             panel, c, pivot=(cfg.panel_qr == PanelQR.qrcp),
-            precision=precision, use_pallas=cfg.pallas_panel)
+            precision=precision)
         failp = jnp.asarray(False)
     chosen = jnp.take(chosen, sigma)
     # packed GEQP3 column (R above, reflector tail below) goes into the
     # selection-order stack; A keeps its stale (masked-out) column — no
-    # dynamic-index column scatter (worker-kill class on this backend)
+    # dynamic-index column scatter (see bqrrp._stage)
     Fstk = jax.lax.dynamic_update_slice(Fstk, W, (0, c))
 
     # 3. deferred trailing update: U = Tᵀ Vᵀ A_true on the live columns
@@ -309,11 +292,7 @@ def _hqrrp_block_step(carry, c, bsz, cfg: HQRRPConfig, precision,
 
     # 1. QRCP of the downdated sketch -> b pivots (lockstep-equivalent)
     with _phase("qrcp"):
-        from ..ops.pallas_qrcp import qrcp_select_pivots_routed
-        _pq = ("never" if cfg.shard_axis is not None
-               else cfg.pallas_qrcp)
-        chosen = qrcp_select_pivots_routed(Y, bsz, live, precision,
-                                           use_pallas=_pq)
+        chosen = qrcp_select_pivots(Y, bsz, live, precision)
         if timer is not None:
             device_sync(chosen.astype(jnp.float32))
 
@@ -323,16 +302,13 @@ def _hqrrp_block_step(carry, c, bsz, cfg: HQRRPConfig, precision,
         if cfg.panel_qr == PanelQR.cholqr:
             W, V, taus, sigma, failp = _cholqr_panel(panel, c, precision)
         else:
-            from ..ops.pallas_qrcp import qrcp_panel_routed
-            _pp = ("never" if cfg.shard_axis is not None
-                   else cfg.pallas_panel)
-            W, V, taus, sigma = qrcp_panel_routed(
+            W, V, taus, sigma = qrcp_panel(
                 panel, c, pivot=(cfg.panel_qr == PanelQR.qrcp),
-                precision=precision, use_pallas=_pp)
+                precision=precision)
             failp = jnp.asarray(False)
         chosen = jnp.take(chosen, sigma)
         # selection-order stack, merged post-permutation (no dynamic-
-        # index column scatter — worker-kill class on this backend)
+        # index column scatter — see bqrrp._stage)
         Fstk = jax.lax.dynamic_update_slice(Fstk, W, (0, c))
         if timer is not None:
             device_sync(W)
@@ -488,7 +464,7 @@ def hqrrp(A: jax.Array, cfg: HQRRPConfig, state: RNGState,
 
     ``timing=True`` appends a phase-metrics dict (sketch / blocks /
     epilogue — the reference's 26-slot vector collapsed to the phases
-    that exist on TPU, rl_hqrrp.hh:1150-1160).
+    of this static-shape design, rl_hqrrp.hh:1150-1160).
     """
     out = _hqrrp_core(A, cfg, state, precision, timing)
     A_perm, taus, J, rank, fail, state = out[:6]

@@ -4,7 +4,7 @@ Algorithm E2 of arXiv:2110.02820): SYRF basis, shifted CholQR of QᵀY,
 SVD, eigenvalue de-regularization; k doubles until the power-iteration
 error estimate ≤ 5·max(tol, ν) (:238-244).
 
-TPU design: the fixed-rank core ``revd2_fixed_rank`` is one jitted graph;
+Design: the fixed-rank core ``revd2_fixed_rank`` is one jitted graph;
 the adaptive driver doubles k in a host loop (few distinct shapes, each
 jit-cached).
 """
@@ -40,7 +40,8 @@ def _power_error_est(A, V, lam, passes, state: RNGState, precision):
 
     def resid_apply(x):
         return (_apply_sym(A, x, precision)
-                - V @ (lam[:, None] * (V.T @ x)))
+                - jnp.matmul(V, lam[:, None] * jnp.matmul(
+                    V.T, x, precision=precision), precision=precision))
 
     def body(i, carry):
         v, est = carry

@@ -23,7 +23,7 @@ class SPLSConfig:
     d_factor: float = 4.0         # sketch rows = d_factor * n
     vec_nnz: int = 8
     precond: str = "svd"          # "qr": M = R_sk⁻¹ (exact triangular; best
-                                  # for μ≈0 but XLA tall QR is slow on TPU);
+                                  # for μ≈0, costs a tall QR);
                                   # "svd": V/√(σ²+μ) (the
                                   # reference's rpc_data_svd path — handles
                                   # μ>0 and rank deficiency)
@@ -32,13 +32,11 @@ class SPLSConfig:
                                   # "pcg" (normal equations, the
                                   # reference's path — x-accuracy limited
                                   # to κ²·eps) | "lsqr" (works on A
-                                  # directly: attainable x-accuracy κ·eps;
-                                  # on-chip x-err 0.18 vs PCG's 265 at
-                                  # κ≈1e5 f32 — hence the default)
+                                  # directly: attainable x-accuracy κ·eps
+                                  # — hence the default)
     refine_precond: bool = True   # one CholQR pass of M against the sketch
-                                  # Gram — repairs the TPU Gram/eigh SVD's
-                                  # trailing-vector error (47→~19 PCG
-                                  # iters on the BASELINE config); no-op
+                                  # Gram — repairs the Gram/eigh SVD's
+                                  # trailing-vector error; no-op
                                   # effect when the SVD is exact
     pcg: PCGSaddleConfig = PCGSaddleConfig()
 

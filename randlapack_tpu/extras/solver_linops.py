@@ -3,8 +3,8 @@ extras/linops/ext_cholsolver_linop.hh — ``CholSolverLinOp`` exposes K⁻¹ (or
 the half-solve L⁻¹) of a sparse SPD matrix as a LinearOperator, Eigen
 computing the factorization; ext_lusolver_linop.hh:53 same with SparseLU).
 
-TPU mapping (SURVEY.md §7 "hard parts"): sparse direct *factorization* has
-no TPU story, so it runs once on the HOST (scipy SuperLU). The bulk
+Design (SURVEY.md §7 "hard parts"): sparse direct *factorization* has no
+XLA lowering, so it runs once on the HOST (scipy SuperLU). The bulk
 multi-RHS triangular solves — the part the reference routes through
 RandBLAS ``sparse_data::trsm`` — run ON DEVICE by default via the blocked
 gather-based :func:`randlapack_tpu.sketching.sparse_data.sparse_trsm`

@@ -5,7 +5,7 @@ generators :311/:384/:409).
 
 Every generator is deterministic in the RNGState and returns
 ``(A, next_state)``. Spectra are built on host (tiny vectors), factors
-assembled with MXU matmuls.
+assembled with matmuls.
 """
 from __future__ import annotations
 
@@ -193,7 +193,7 @@ def mat_gen(info: MatGenInfo, state: RNGState, dtype=jnp.float64):
 
 
 def fast_decay_matrix(m: int, n: int, state: RNGState, dtype=jnp.float32,
-                      decay: float = 6.0, precision=None):
+                      decay: float = 6.0, precision=STABLE_PRECISION):
     """Cheap benchmark matrix with an approximately exponential spectrum:
     A = (G₁·diag(e^{-decay·i/k}))·G₂ᵀ/√(mk) with iid Gaussian factors — no
     Haar QR, so generation is one GEMM (needed for 8192²+ bench inputs

@@ -1,5 +1,5 @@
 """Sparse linear operator over jax.experimental.sparse BCOO
-(reference: rl_sparse_linop.hh wraps RandBLAS CSR/CSC/COO; on TPU the
+(reference: rl_sparse_linop.hh wraps RandBLAS CSR/CSC/COO; here the
 batched-COO format is the XLA-lowerable one, and spmm lowers to
 gather/scatter + dot fusions).
 """

@@ -3,7 +3,7 @@ rl_sparse_views.hh — ``CSRRowBlockView`` :27 zero-copy rowptr offset,
 ``CSRColBlock`` :56 copy+filter, ``CSCColBlockView`` :94, ``CSCRowBlock``
 :119 + factory free functions).
 
-TPU mapping: a "view" holds *references* to the parent's index/data
+Design: a "view" holds *references* to the parent's index/data
 arrays plus offsets — no buffer copies at construction (the reference's
 zero-copy semantics; JAX arrays are immutable so sharing is safe by
 construction). CSC is carried as the CSR of the transpose (the module-wide

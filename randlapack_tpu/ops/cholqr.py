@@ -1,9 +1,9 @@
-"""CholeskyQR family — the TPU-native orthogonalization workhorse.
+"""CholeskyQR family — the orthogonalization workhorse.
 
 The reference uses CholQR (syrk→potrf→trsm) as its fastest stabilizer
 (reference: RandLAPACK/comps/rl_orth.hh:69-98) and shifted CholQR3 for
-operators (rl_scholqr3_linops.hh:45,132). On TPU this family is ideal:
-the Gram matrix is one big MXU matmul, Cholesky and triangular solves are
+operators (rl_scholqr3_linops.hh:45,132). On an accelerator this family
+is ideal: the Gram matrix is one big matmul, Cholesky and triangular solves are
 native XLA ops, and no column-sequential Householder pass is needed.
 
 All functions are jit-traceable and return an explicit failure flag instead
@@ -65,7 +65,7 @@ def _solve_rt(A, R, precision=None):
 def _pow2(k, dtype):
     """EXACT 2^k by exponent-bit construction. Neither jnp.exp2 nor
     jnp.ldexp is safe here: exp2 is an approximate transcendental, and
-    ldexp lowers through ``2 ** e`` = lax.pow → exp(e·log2) on TPU —
+    ldexp can lower through ``2 ** e`` = lax.pow → exp(e·log2) —
     both can return a value 1 ulp off a true power of two, which breaks
     the bitwise scale-equivariance this guard promises."""
     k = jnp.asarray(k, jnp.int32)
@@ -85,8 +85,8 @@ def _finite_scaled(A):
     entries → 0 (reported), and a GLOBAL rescale so the Gram matrix
     cannot overflow (max|A|² · m must stay below dtype max — preconditioned
     panels can carry huge-but-finite entries when the preconditioner's
-    clamped diagonal hides a deficient column, and an Inf reaching a TPU
-    dense-linalg kernel can wedge the worker; see
+    clamped diagonal hides a deficient column, and an Inf reaching a
+    dense-linalg kernel poisons its output; see
     drivers/bqrrp.py::_sanitize_sketch). Healthy inputs pass through
     bitwise (scale == 1.0). Returns ``(A_scaled, scale, nonfinite)``."""
     m, n = A.shape

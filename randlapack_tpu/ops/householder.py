@@ -2,7 +2,7 @@
 capability (reference: lapack::orhr_col used in rl_bqrrp.hh:453-510 and the
 reference impl rl_util.hh:339).
 
-The TPU framework's primary output is explicit Q (SURVEY.md §7
+The framework's primary output is explicit Q (SURVEY.md §7
 recommendation); this adapter reconstructs the LAPACK implicit form
 (packed reflectors + taus, plus the diagonal sign matrix) for drop-in
 compatibility with GEQP3/GEQRF consumers.
@@ -133,12 +133,8 @@ def orhr_col(Q_panel: jax.Array, row0, precision=STABLE_PRECISION):
     m, b = Q_panel.shape
     dtype = Q_panel.dtype
     Q1 = jax.lax.dynamic_slice(Q_panel, (row0, 0), (b, b))
-    # the b² elimination runs as one VMEM-resident Pallas kernel on
-    # TPU/f32 (ops/pallas_lu.py — the recursive chain was the largest
-    # serial cost of the BQRRP block loop, ~2.9 ms/call at b=512);
-    # recursive jnp elsewhere
-    from .pallas_lu import getrfnp_routed
-    F, s = getrfnp_routed(Q1)
+    with jax.named_scope("getrfnp"):
+        F, s = getrfnp(Q1)
     L1 = jnp.tril(F, -1) + jnp.eye(b, dtype=dtype)
     U1 = jnp.triu(F)
     S_pad = jnp.zeros((m, b), dtype).at[

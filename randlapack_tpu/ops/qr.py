@@ -73,8 +73,8 @@ def geqp3(A: jax.Array, k: int | None = None, want_q: bool = True,
         cols = jnp.arange(n)
         if pivot:
             # 1. pivot selection on downdated squared norms
-            # finite penalty, NOT -inf: inf constants inside fori_loop
-            # miscompile to 0 on this TPU backend (cn2 >= 0 always)
+            # finite penalty, NOT -inf: an earlier backend miscompiled inf
+            # constants inside fori_loop to 0 (cn2 >= 0 always)
             masked = jnp.where(cols >= i, cn2, -1.0)
             p = jnp.argmax(masked)
             # 2. swap columns i <-> p (gather-free swap via where)
@@ -126,8 +126,8 @@ def _drmac_downdate(W, i, r_row, dN, eN, update_mask):
     dtype = W.dtype
     tol3z = jnp.sqrt(jnp.finfo(dtype).eps)
     rows = jnp.arange(W.shape[0])
-    # exact trailing norms (rows > i) — feeds the recompute branch; on TPU
-    # the full masked reduction is cheaper than data-dependent control flow
+    # exact trailing norms (rows > i) — feeds the recompute branch; the
+    # full masked reduction replaces data-dependent control flow
     trail = jnp.sqrt(jnp.sum(
         jnp.where(rows[:, None] > i, W, 0.0) ** 2, axis=0))
     dsafe = jnp.where(dN > 0, dN, 1.0)
@@ -273,15 +273,14 @@ def lu_pivot_columns(A_panel_t: jax.Array):
     Returns the full length-n permutation (first d entries are the chosen
     pivot columns, in order).
     """
-    # TPU LU wedges the worker on Inf operands (drivers/bqrrp.py::
-    # _sanitize_sketch) — non-finite columns carry no pivot information
+    # non-finite columns carry no pivot information (drivers/bqrrp.py::
+    # _sanitize_sketch)
     A_panel_t = jnp.where(jnp.isfinite(A_panel_t), A_panel_t, 0.0)
     # STRUCTURAL-DEFICIENCY PAD: when fewer than d rows are nonzero
     # (masked/retired sketch columns, or rank < d), textbook elimination
     # hits an exactly-zero pivot — 0/0 and 1/0 arise INSIDE the kernel,
-    # and the TPU LU kernel's behavior on internally-generated Inf/NaN is
-    # exactly the class that wedges the worker (r3 "second fault path"
-    # suspect; unprovable off-chip, harmless to prevent). A cyclic
+    # and a kernel fed internally-generated Inf/NaN returns garbage
+    # pivots (harmless to prevent). A cyclic
     # identity pattern at δ = 2^(e_max - 40) — an EXACT power of two, so
     # the pow2 scale-equivariance pinned in test_property_sweeps holds —
     # makes every pivot nonzero while sitting 2^-40 below the data scale:

@@ -1,25 +1,23 @@
 """Economy SVD of small/skinny factors.
 
-XLA's TPU SVD lowers to the polar/QDWH iteration, whose graph takes
-minutes to compile on this backend (measured 236 s for a 512² svd, vs 11 s
-for eigh). Every driver in this framework only ever takes the SVD of a
-SMALL factor (QB's B, ABRIK's band, REVD2's B, sketch SVDs), so the default
-implementation here is the Gram/eigh route:
+Every driver in this framework only ever takes the SVD of a SMALL factor
+(QB's B, ABRIK's band, REVD2's B, sketch SVDs). Two routes compute it:
+XLA's own SVD (``"xla"``: LAPACK on the CPU, cuSOLVER on a GPU) and the
+Gram/eigh route (``"gram_eigh"``):
 
     p ≤ q:  eigh(B Bᵀ) → U, σ²;  Vᵀ = diag(1/σ)·UᵀB
     p > q:  eigh(BᵀB) → V, σ²;  U  = B·V·diag(1/σ)
 
-Accuracy (MEASURED, docs/svd_envelope.md): the Rayleigh refinement
-(σᵢ = ‖Bvᵢ‖, one already-needed GEMM) extends the λ-path's range, but
-its floor is set by eigh's f32 subspace contamination, NOT by the naive
-eps·σ₁/σᵢ model — on dense decaying spectra, values are ~1e-4-accurate
-for σ ≥ 1e-2·σ₁ and ~1e-3-accurate down to σ ≈ 3e-3·σ₁, degrading to
-O(10%) near the √eps·σ₁ cutoff; flat/clustered spectra are accurate
-throughout; triplet residuals stay ≤ ~1e-3·σ₁ everywhere. Vectors for
-σ < √eps·σ₁ are zeroed. Refined values are re-sorted descending (they can
-swap order within their error band vs eigh's λ sort, and downstream S[:k]
-truncations assume monotone s). For f64 correctness-critical paths use
-``method="xla"`` (LAPACK on CPU).
+Accuracy of the Gram route (measured in f32, docs/svd_envelope.md): the
+Rayleigh refinement (σᵢ = ‖Bvᵢ‖, one already-needed GEMM) extends the
+λ-path's range, but its floor is set by eigh's f32 subspace
+contamination, NOT by the naive eps·σ₁/σᵢ model — on dense decaying
+spectra, values are ~1e-4-accurate for σ ≥ 1e-2·σ₁ and ~1e-3-accurate
+down to σ ≈ 3e-3·σ₁, degrading to O(10%) near the √eps·σ₁ cutoff;
+flat/clustered spectra are accurate throughout; triplet residuals stay
+≤ ~1e-3·σ₁ everywhere. Vectors for σ < √eps·σ₁ are zeroed. Refined values
+are re-sorted descending (they can swap order within their error band vs
+eigh's λ sort, and downstream S[:k] truncations assume monotone s).
 """
 from __future__ import annotations
 
@@ -31,14 +29,22 @@ import jax.numpy as jnp
 from ..config import STABLE_PRECISION
 
 
+# "auto" by platform, from compile + run time at the drivers' factor shapes
+# (H100: gram_eigh runs 6-14x faster than cuSOLVER's SVD at 256×4096 to
+# 8000×2000, both compile in about a second; PERF.md, PR 1). The Gram
+# route's f32 trust region (module docstring) is the price; pass
+# method="xla" where values below ~√eps·σ₁ matter. A platform not listed
+# takes the accurate route.
+_AUTO_SVD = {"cpu": "xla", "gpu": "gram_eigh"}
+
+
 def resolve_svd_method(method: str) -> str:
-    """"auto" → "xla" on CPU (LAPACK: fast compile AND accurate),
-    "gram_eigh" on TPU-like backends (where the polar-SVD graph takes
-    minutes to compile). "jacobi" is the opt-in high-relative-accuracy
-    route (see _svd_jacobi)."""
+    """"auto" → the route measured fastest on this platform
+    (``_AUTO_SVD``); any other name passes through. "jacobi" is the
+    opt-in high-relative-accuracy route (see _svd_jacobi)."""
     if method != "auto":
         return method
-    return "xla" if jax.default_backend() == "cpu" else "gram_eigh"
+    return _AUTO_SVD.get(jax.default_backend(), "xla")
 
 
 def _round_robin_schedule(q: int):
@@ -63,7 +69,7 @@ def _svd_jacobi_tall(B: jax.Array, sweeps: int = 20):
     eps·σ₁/σᵢ input-rounding bound, ~4-25× deeper f32 trust region than
     the gram_eigh route on decaying spectra; docs/svd_envelope.md).
 
-    TPU-native structure: a static round-robin schedule makes each of
+    Structure: a static round-robin schedule makes each of
     the (q−1) rounds per sweep a single VECTORIZED rotation of q/2
     disjoint column pairs (gather → elementwise 2-column rotation →
     scatter, no serial 2×2 loop); the whole iteration is one fori_loop
@@ -128,12 +134,12 @@ def svd_econ(B: jax.Array, method: str = "auto",
              precision=STABLE_PRECISION):
     """Economy SVD → (U, s, Vt) with s descending.
 
-    ``method``: "auto" (backend-dependent), "gram_eigh" (fast TPU compile,
-    √eps relative cutoff), "jacobi" (one-sided Jacobi — high RELATIVE
-    value accuracy to the f32 input-rounding bound, eps-level triplet
-    residuals at any depth; ~sweeps·(q−1) vector rounds, heavier than
-    eigh) or "xla" (native lowering — accurate, minutes to compile on
-    TPU).
+    ``method``: "auto" (platform-dependent, see ``resolve_svd_method``),
+    "gram_eigh" (one Gram GEMM + eigh, √eps relative cutoff), "jacobi"
+    (one-sided Jacobi — high RELATIVE value accuracy to the f32
+    input-rounding bound, eps-level triplet residuals at any depth;
+    ~sweeps·(q−1) vector rounds, heavier than eigh) or "xla" (native
+    lowering — accurate).
     """
     method = resolve_svd_method(method)
     if method == "xla":

@@ -1,12 +1,11 @@
 """Blocked partitioned-inverse triangular solve (right side, upper R).
 
-XLA's ``triangular_solve`` on this chip runs the m×n right-solve at
-~40-50% of GEMM rate (chip-measured r5: 0.070 s of CQRRPT's 0.187 s
-total at 131072×2048 — the biggest remaining m×n slice). The classic
+An m×n right-solve can run well below GEMM rate (ROADMAP S5 measures
+XLA's ``triangular_solve`` against this on the GPU). The classic
 GPU-library restructure (cuBLAS/MAGMA trsm): invert ONLY the b×b
 diagonal blocks of R (tiny solves, well-conditioned — a pivoted R's
 decay is spread along the diagonal, so κ(R_jj) ≈ κ(R)^(b/n)), and do
-the back-substitution recurrence with MXU GEMMs:
+the back-substitution recurrence with GEMMs:
 
     X_j = (A_j − X_{:,<j} · R_{<j,j}) · R_jj⁻¹
 
@@ -17,8 +16,8 @@ makes. NOT safe when individual diagonal blocks are ill-conditioned
 (κ(R_jj) ≳ 1/√eps); CQRRPT's rank gate clamps the deficient diagonal
 entries first, which bounds the blocks in practice.
 
-Reference analogue: rl_cqrrpt.hh:287-310 uses cblas_strsm; this is the
-TPU-native restructure of the same step.
+Reference analogue: rl_cqrrpt.hh:287-310 uses cblas_strsm; this is a
+GEMM-based restructure of the same step.
 """
 from __future__ import annotations
 

@@ -95,7 +95,7 @@ def diag_is_nonzero(A: jax.Array, tol=0.0) -> jax.Array:
 
 def rank_search_binary(singvals: jax.Array, tol) -> jax.Array:
     """Index of the smallest singular value above tol (rl_util.hh:223
-    semantics, but vectorized — no binary search needed on TPU)."""
+    semantics, but vectorized — no binary search needed)."""
     return jnp.sum(singvals > tol).astype(jnp.int32)
 
 

@@ -2,12 +2,12 @@
 
 The reference is single-process (SURVEY.md §2.8/§5.8); its blocked/
 streaming structures (column-blocked Gram loops, one-pass sketches) are
-exactly what shards over a TPU mesh along the tall dimension. This package
+exactly what shards over a device mesh along the tall dimension. This package
 provides:
 
   * mesh helpers (``make_mesh``)
   * distributed tall-skinny orthogonalization (``dist_cholqr``,
-    ``dist_shifted_cholqr3``): local Gram + psum over ICI + replicated
+    ``dist_shifted_cholqr3``): local Gram + psum over the mesh + replicated
     Cholesky + local triangular solve — the communication-optimal
     CholeskyQR layout (one k×k all-reduce per pass)
   * distributed Gram (``dist_gram``) and sketch-apply (``dist_sketch_left``)

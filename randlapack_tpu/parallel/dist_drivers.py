@@ -196,7 +196,7 @@ def dist_spls(A: jax.Array, b: jax.Array, mu, mesh: Mesh,
     §5.8, the reference's test_pcgls workflow is single-process).
 
     Structure: a column-sharded Gaussian sketch contracts the row shards
-    into ONE replicated d×n sketch (one psum over ICI), the SVD
+    into ONE replicated d×n sketch (one psum), the SVD
     preconditioner + CholQR sketch-space refinement
     (comps/preconditioners.py::right_precond_saso semantics) run
     replicated on the small sketch, and every PCG iteration's normal-
@@ -481,7 +481,7 @@ class DistSquaredExpKernelLinOp:
         return self._base.columns(idx)
 
     def matmat(self, V: jax.Array, precision=STABLE_PRECISION):
-        from jax.experimental.shard_map import shard_map
+        from jax import shard_map
         from ..pdkernels import squared_exp_kernel
         base = self._base
         n = base.dim

@@ -1,14 +1,14 @@
 """Distributed sketching + rangefinder step — the framework's sharded
 "training step": one randomized power/orthogonalize/project cycle over a
 row-sharded operator, with all collectives (psum of Gram tiles and of
-sketch partial sums) riding ICI.
+sketch partial sums) across the device interconnect.
 """
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
-from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 from ..config import STABLE_PRECISION
 

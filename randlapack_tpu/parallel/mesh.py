@@ -10,8 +10,8 @@ def make_mesh(n_devices: int | None = None, axis: str = "rows") -> Mesh:
     """1-D device mesh over the first ``n_devices`` devices (default all).
 
     The tall (row) dimension of every operator shards over this axis; the
-    short dimension stays replicated — Gram reductions then ride ICI as a
-    single psum of a k×k tile.
+    short dimension stays replicated — Gram reductions are then a single
+    psum of a k×k tile.
     """
     devs = jax.devices()[: (n_devices or len(jax.devices()))]
     return Mesh(np.asarray(devs), (axis,))

@@ -1,8 +1,8 @@
 """Distributed tall-skinny orthogonalization over a row-sharded mesh.
 
-CholeskyQR is the communication-optimal TSQR on TPU: each device computes
-its local Gram contribution (one MXU matmul), a single ``psum`` of the k×k
-tile rides ICI, the Cholesky factor is computed redundantly on every
+CholeskyQR is the communication-optimal TSQR: each device computes its
+local Gram contribution (one matmul), a single ``psum`` of the k×k tile
+crosses the interconnect, the Cholesky factor is computed redundantly on every
 device (k×k — cheaper than broadcasting), and the triangular solve is
 local. This replaces both the reference's threaded-BLAS CholQR
 (rl_orth.hh:69) and its column-blocked Gram loops
@@ -13,7 +13,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
-from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 from ..config import STABLE_PRECISION
 

@@ -4,9 +4,9 @@ euclidean_distance_submatrix :74, squared_exp_kernel :102,
 squared_exp_kernel_submatrix :133, block_arrowhead_multiply :161).
 
 Data convention: X is (d, n) — n points in d dimensions, one point per
-column (the reference's convention). All distance math is GEMM-based so it
-runs on the MXU; the OpenMP-blocked entrywise kernel of the reference
-becomes a fused XLA elementwise-over-GEMM.
+column (the reference's convention). All distance math is GEMM-based; the
+OpenMP-blocked entrywise kernel of the reference becomes a fused XLA
+elementwise-over-GEMM, or on a GPU one fused kernel.
 """
 from __future__ import annotations
 
@@ -123,16 +123,15 @@ class SquaredExpKernelLinOp:
 
     def matmat(self, V: jax.Array, precision=STABLE_PRECISION):
         """K V (+ per-column μ V), evaluated in column blocks of K so the
-        n×n kernel matrix never fully materializes. On TPU with aligned
-        shapes this dispatches to the fused Pallas kernel (K tiles live
-        only in VMEM — no HBM slab at all)."""
+        n×n kernel matrix never fully materializes. On a GPU with f32
+        points this dispatches to the fused kernel
+        (``ops.pallas_kernels.kernel_matmat``), which writes no block of
+        K to device memory at all."""
         n = self.dim
-        from .ops.pallas_kernels import _on_tpu, kernel_matmat
-        if _on_tpu() and n % 256 == 0 and self.X.shape[0] <= 64:
-            s = V.shape[1]
-            s_pad = -(-s // 128) * 128
-            Vp = V if s == s_pad else jnp.pad(V, ((0, 0), (0, s_pad - s)))
-            out = kernel_matmat(self.X, Vp, self.bandwidth)[:, :s]
+        from .ops.pallas_kernels import kernel_matmat, use_fused_matmat
+        if use_fused_matmat(jax.default_backend(), self.X.shape[0],
+                            self.X.dtype):
+            out = kernel_matmat(self.X, V, self.bandwidth)
             if self.evals_include_reg:
                 if self.num_ops == 1:
                     out = out + self.mus[0] * V

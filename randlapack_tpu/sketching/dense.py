@@ -3,7 +3,7 @@
 Reference surface (SURVEY.md §2.9): ``DenseDist`` + ``ScalarDist::{Gaussian,
 Uniform}`` + ``fill_dense``/``fill_dense_unpacked`` + ``DenseSkOp``.
 
-TPU-first design: a dense sketch is just an array produced deterministically
+Design: a dense sketch is just an array produced deterministically
 from an ``RNGState``; entries have unit variance so ``S/sqrt(d)`` is an
 isometry in expectation. The fused generate+apply path (never materializing
 S in HBM for huge m) lives in ``randlapack_tpu.sketching.apply``.

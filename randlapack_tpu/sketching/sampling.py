@@ -5,7 +5,7 @@ Reference surface (SURVEY.md §2.9): ``weights_to_cdf``,
 ``repeated_fisher_yates``. Used by RPCholesky pivot sampling
 (reference: RandLAPACK/comps/rl_rpchol.hh:139-143) and SASO construction.
 
-TPU-first: CDF inversion via ``searchsorted`` (vectorized), and
+Design: CDF inversion via ``searchsorted`` (vectorized), and
 without-replacement sampling via the Gumbel top-k trick instead of a
 sequential Fisher-Yates loop — identical distribution for uniform weights,
 fully parallel on the VPU.

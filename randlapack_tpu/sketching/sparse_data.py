@@ -2,7 +2,7 @@
 capability (SURVEY.md §2.9: COO/CSR/CSC matrices, ``coo_to_csr/csc``,
 ``*_to_dense``, ``dense_to_*``, ``left_spmm``/``right_spmm``).
 
-TPU representation: BCOO is the XLA-lowerable workhorse (SparseLinOp);
+Representation: BCOO is the XLA-lowerable workhorse (SparseLinOp);
 BCSR covers the CSR side. This module provides the explicit format
 conversions and dense round-trips as pure functions; CSC is represented as
 the CSR of the transpose (the standard trick — every CSC operation maps to
@@ -121,7 +121,7 @@ def sparse_trsm(rows, cols, vals, n: int, B: jax.Array,
 
     Solves T·X = B for sparse triangular T given in COO form
     (host/numpy index arrays — packing happens once on the host, the
-    substitution runs on device). TPU design: diagonal blocks are
+    substitution runs on device). Design: diagonal blocks are
     densified once and solved with the dense ``triangular_solve``;
     off-diagonal coupling is applied via padded-CSR *gather* FMA layers
     (no scatters), one block row/column at a time.
@@ -169,7 +169,8 @@ def sparse_trsm(rows, cols, vals, n: int, B: jax.Array,
         c = i * bs
         cp = jax.lax.dynamic_slice(cols_pad, (c, 0), (bs, L))
         vp = jax.lax.dynamic_slice(vals_off, (c, 0), (bs, L))
-        acc = jnp.einsum("rl,rln->rn", vp, X[cp, :])
+        acc = jnp.einsum("rl,rln->rn", vp, X[cp, :],
+                         precision=jax.lax.Precision.HIGHEST)
         rhs = jax.lax.dynamic_slice(B, (c, 0), (bs, B.shape[1])) - acc
         Xb = jax.lax.linalg.triangular_solve(
             D[i], rhs, left_side=True, lower=lower)

@@ -5,7 +5,7 @@ short-axis sparse operator, vec_nnz nonzeros per long-axis vector
 (reference: RandLAPACK/drivers/rl_cqrrpt.hh:214-222,
 RandLAPACK/comps/rl_preconditioners.hh:136-160, ``Axis::Short``).
 
-TPU-first representation: structure-of-arrays — for a d×m operator with
+Representation: structure-of-arrays — for a d×m operator with
 d ≤ m (the common "sketch the tall axis" case), each of the m columns holds
 ``vec_nnz`` entries at distinct random rows with iid ±1 values:
 
@@ -13,7 +13,7 @@ d ≤ m (the common "sketch the tall axis" case), each of the m columns holds
     vals : (vec_nnz, m) dtype   ±1 (unscaled; isometry_scale = 1/√vec_nnz)
 
 Apply S @ A is a sum of ``vec_nnz`` scatter-adds of sign-flipped copies of A
-— O(vec_nnz·m·n) work, HBM-bandwidth bound, no MXU needed. A is streamed
+— O(vec_nnz·m·n) work, bandwidth bound, no matmul needed. A is streamed
 once per nnz layer and never gathered into a (vec_nnz·m, n) temporary.
 """
 from __future__ import annotations
@@ -92,23 +92,19 @@ def saso_left_apply(S: SparseSkOp, A: jax.Array, scale: bool = True,
     Two implementations (``method``):
 
     * ``"scatter"`` — vec_nnz scatter-add layers: out[rows[j, c], :] +=
-      vals[j, c]·A[c, :]. Each layer streams A once. Fine on CPU; on TPU
-      scatter-add with duplicate indices serializes and is the reason the
-      round-1 CQRRPT benchmark had to switch to SRHT.
+      vals[j, c]·A[c, :]. Each layer streams A once; scatter-add with
+      duplicate indices may serialize on an accelerator.
     * ``"gather"`` — CSR-by-output-row re-packing (one device sort), then
       L padded gather-FMA layers: out[r, :] += val·A[col, :] with cols
-      *gathered*, never scattered — the TPU-friendly layout (SURVEY.md §7
-      "SASO on TPU"). Exact unconditionally: the pad bound L covers the
+      *gathered*, never scattered (SURVEY.md §7 "SASO").
+      Exact unconditionally: the pad bound L covers the
       row-occupancy tail, a fixed overflow buffer (one tiny scatter,
       l_over=4096) catches the rest, and the statistically-impossible
       beyond-buffer case lax.cond-falls back to the exact scatter
       formulation instead of silently dropping entries.
 
-    ``"auto"`` → scatter: measured on TPU v5e (131072×2048, d=2560,
-    nnz=2) scatter = 57.6 ms vs gather = 67.7 ms — current XLA lowers
-    this scatter-add acceptably, and SASO-sketched CQRRPT lands within
-    1.11× of the SRHT path. The gather path is kept as the fallback for
-    backends/shapes where scatter degrades.
+    ``"auto"`` → scatter (not yet measured on a GPU against the gather
+    path, which is kept for shapes where scatter degrades).
     """
     d = S.dist.n_rows
     m, n = A.shape
@@ -167,7 +163,8 @@ def _saso_left_gather(S: SparseSkOp, A: jax.Array, d: int, m: int, n: int,
         cp = cols_pad[:, lb:lb + chunk]              # (d, chunk)
         vp = vals_pad[:, lb:lb + chunk]
         gathered = A[cp, :]                          # (d, chunk, n) gather
-        out = out + jnp.einsum("dl,dln->dn", vp, gathered)
+        out = out + jnp.einsum("dl,dln->dn", vp, gathered,
+                               precision=jax.lax.Precision.HIGHEST)
 
     # exact tail: route overflow entries through one tiny scatter
     oorder = jnp.argsort(in_main)[:l_over]           # overflow-first

@@ -1,9 +1,9 @@
-"""Subsampled Randomized Hadamard Transform (SRHT) — the MXU-friendly sketch.
+"""Subsampled Randomized Hadamard Transform (SRHT) — the GEMM-based sketch.
 
 Not present in the reference (RandBLAS ships dense + SASO), but SURVEY.md §7
-recommends SRHT as the TPU-native structured sketch: the Walsh-Hadamard
-transform factorizes into dense 128×128 (or smaller) Hadamard matmuls that
-run on the MXU, so sketching an m×n matrix costs O(m·n·log m / 128) MXU time
+recommends SRHT as the accelerator-friendly structured sketch: the
+Walsh-Hadamard transform factorizes into dense 128×128 (or smaller)
+Hadamard matmuls, so sketching an m×n matrix costs O(m·n·log m / 128) GEMM time
 instead of an m×d Gaussian GEMM.
 
 S = sqrt(m_pad/d) · R · H · D with D = diag(±1), H the m_pad-point
@@ -34,7 +34,7 @@ def fwht(x: jax.Array, precision=SKETCH_PRECISION) -> jax.Array:
     """Walsh-Hadamard transform along axis 0 (length must be a power of 2).
 
     Radix-128 (tail radices as needed) so every stage is a dense matmul on
-    the MXU rather than log2(m) butterfly passes over HBM.
+    rather than log2(m) butterfly passes over device memory.
     """
     m = x.shape[0]
     assert m & (m - 1) == 0, "fwht length must be a power of two"

@@ -111,3 +111,31 @@ def left_multiply_by_orthmat(A, state: RNGState):
     Q, state = haar_basis(m, m, state, A.dtype)
     from .config import STABLE_PRECISION
     return jnp.matmul(Q, A, precision=STABLE_PRECISION), state
+
+
+# pivot-quality gate on the trailing-norm ratio ‖R_geqp3[i:, i:]‖ /
+# ‖R[i:, i:]‖ over the leading half of the diagonal (benchmarks/
+# qr_quality.py, methodology of arXiv:2311.08316 §4)
+PIVOT_RATIO_GATE = (0.5, 2.0)
+
+
+def trailing_norms(R):
+    """‖R[i:, i:]‖_F for every i (the reference's get_norms)."""
+    import numpy as np
+    R = np.asarray(R)
+    n = min(R.shape)
+    sq = np.abs(np.triu(R[:n, :n])) ** 2
+    # suffix[i, j] = sum of sq[i:, j:]; trailing norm i = sqrt(suffix[i,i])
+    suffix = np.flip(np.flip(sq, (0, 1)).cumsum(0).cumsum(1), (0, 1))
+    return np.sqrt(np.diag(suffix))
+
+
+def pivot_norm_ratios(R, R_geqp3):
+    """Trailing-norm ratios of a pivoted R against LAPACK geqp3's R over
+    the leading half of the diagonal; each should lie in
+    ``PIVOT_RATIO_GATE``."""
+    import numpy as np
+    K = min(np.asarray(R_geqp3).shape)
+    tn_ours = trailing_norms(np.asarray(R)[:, :K])
+    tn_qp3 = trailing_norms(R_geqp3)
+    return tn_qp3[: K // 2] / np.maximum(tn_ours[: K // 2], 1e-300)

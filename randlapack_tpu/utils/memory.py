@@ -2,7 +2,7 @@
 ``get_rss_kb`` /proc reader :20, ``PeakRSSTracker`` 100 μs background
 sampler :41-77, analytical peak-memory formulas per algorithm :87-129).
 
-TPU additions: device HBM statistics via the PJRT ``memory_stats`` API,
+Additions: device memory statistics via the PJRT ``memory_stats`` API,
 which replaces host-RSS as the number that matters for device-resident
 algorithms.
 """
@@ -69,7 +69,7 @@ def analytical_peak_bytes(algorithm: str, m: int, n: int,
                           block: int | None = None, dtype_bytes: int = 4,
                           d_factor: float = 1.25) -> int:
     """Analytical peak device-memory models per algorithm (reference
-    :87-129 ports, adapted to the TPU drivers' actual buffers)."""
+    :87-129 ports, adapted to this framework's drivers' buffers)."""
     b = block or 256
     K = min(m, n)
     if algorithm == "cholqr_linops":

@@ -218,12 +218,10 @@ class TestGeneratorWideShapes:
 
 
 class TestInfSanitization:
-    """XLA's TPU LU kernel wedges the worker on Inf operands (round-3
-    on-chip bisect: a single Inf in a 2048x640 input hangs the chip; the
-    b=512 full-width-LU BQRRP config overflowed its trsm-downdated sketch
-    to Inf and killed the worker). Every lu() input is now sanitized and
-    the downdated sketch is kept finite + boundedly scaled — these pin
-    the sanitize semantics on CPU."""
+    """An Inf in an LU operand poisons the pivot pass (the b=512
+    full-width-LU BQRRP config once overflowed its trsm-downdated sketch
+    to Inf). Every lu() input is sanitized and the downdated sketch is
+    kept finite + boundedly scaled — these pin the sanitize semantics."""
 
     def test_sanitize_sketch_rescales_and_flags(self):
         from randlapack_tpu.drivers.bqrrp import _sanitize_sketch
@@ -278,8 +276,7 @@ class TestInfSanitization:
         assert res < 1e-10 and not bool(fail)
 
     def test_cholqr_inf_and_huge_inputs(self):
-        """cholqr must never feed an overflowed Gram to the TPU Cholesky
-        kernel: Inf entries -> fail flag with finite outputs; huge-but-
+        """cholqr must never feed an overflowed Gram to the Cholesky: Inf entries -> fail flag with finite outputs; huge-but-
         finite inputs factor correctly through the scale guard; healthy
         inputs are bitwise-unchanged."""
         from randlapack_tpu.ops.cholqr import cholqr, shifted_cholqr3

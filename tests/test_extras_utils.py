@@ -4,6 +4,7 @@ import os
 import tempfile
 
 import jax
+import pytest
 import jax.numpy as jnp
 import numpy as np
 
@@ -117,6 +118,26 @@ class TestAux:
             device_sync(x)
         rep = t.report()
         assert rep["a"] > 0
+
+    @pytest.mark.parametrize("env_set", [True, False])
+    def test_compile_cache_dir(self, env_set, monkeypatch, tmp_path):
+        """JAX_COMPILATION_CACHE_DIR wins when set (and no code sets
+        another); otherwise the cache is .jax_cache/ in the checkout."""
+        from randlapack_tpu.utils import (compile_cache_dir,
+                                          enable_compile_cache)
+        before = jax.config.jax_compilation_cache_dir
+        if env_set:
+            monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR",
+                               str(tmp_path / "elsewhere"))
+            assert compile_cache_dir("/some/checkout") == str(
+                tmp_path / "elsewhere")
+            assert enable_compile_cache("/some/checkout") == str(
+                tmp_path / "elsewhere")
+            assert jax.config.jax_compilation_cache_dir == before
+        else:
+            monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+            assert compile_cache_dir(str(tmp_path)) == str(
+                tmp_path / ".jax_cache")
 
     def test_rss_tracker(self):
         with PeakRSSTracker() as trk:

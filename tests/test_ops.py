@@ -278,9 +278,9 @@ class TestRandBLASSmallUtils:
 
 class TestSVDEnvelope:
     """Pin the MEASURED f32 accuracy envelope of the gram_eigh SVD route
-    (docs/svd_envelope.md; tools/svd_envelope_sweep.py). The route is the
-    forced SVD on the TPU backend, so its trustworthy-sigma region is a
-    library contract, not an implementation detail."""
+    (docs/svd_envelope.md; tools/svd_envelope_sweep.py). The route is a
+    selectable SVD method, so its trustworthy-sigma region is a library
+    contract, not an implementation detail."""
 
     @staticmethod
     def _factor(p, q, kappa, seed):

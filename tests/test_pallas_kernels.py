@@ -1,22 +1,29 @@
-"""Pallas kernel tests — run in interpret mode on CPU so the kernel code
-itself (grids, block specs, accumulation) is exercised without a TPU."""
+"""The fused squared-exp kernel matmat (ops/pallas_kernels.py): the Triton
+kernel run through the Pallas interpreter on CPU, and the choice between
+it and the plain blocked path."""
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from randlapack_tpu.ops.pallas_kernels import (gaussian_sketch,
-                                               kernel_matmat,
-                                               kernel_matmat_reference)
+from randlapack_tpu.ops.pallas_kernels import (kernel_matmat,
+                                               kernel_matmat_reference,
+                                               use_fused_matmat)
+from randlapack_tpu.pdkernels import SquaredExpKernelLinOp
 
 
 class TestKernelMatmat:
-    def test_matches_reference(self):
-        d, n, s = 8, 512, 128
+    # s=1 takes the row reduction, s=20 pads to 32 columns; n=100, 200
+    # and 300 are not tile multiples; d=3 and d=20 are not powers of two
+    @pytest.mark.parametrize("d,n,s", [(8, 512, 128), (3, 100, 1),
+                                       (8, 200, 20), (20, 256, 64),
+                                       (8, 300, 1)])
+    def test_matches_reference(self, d, n, s):
         X = jax.random.normal(jax.random.key(0), (d, n), jnp.float32)
         V = jax.random.normal(jax.random.key(1), (n, s), jnp.float32)
         out = kernel_matmat(X, V, 1.3, interpret=True)
         ref = kernel_matmat_reference(X, V, 1.3)
+        assert out.shape == (n, s) and out.dtype == jnp.float32
         np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
                                    rtol=2e-5, atol=1e-5)
 
@@ -35,107 +42,24 @@ class TestKernelMatmat:
                                    rtol=2e-5, atol=1e-5)
 
 
-class TestGaussianSketch:
-    def test_statistics(self):
-        m, n, d = 2048, 256, 64
-        A = jax.random.normal(jax.random.key(4), (m, n), jnp.float32)
-        try:
-            out = gaussian_sketch(A, d, 11, interpret=True)
-        except Exception as e:  # interpret-mode PRNG unsupported somewhere
-            pytest.skip(f"interpret-mode prng unavailable: {e}")
-        # E[||SA||_F] = ||A||_F
-        ratio = float(jnp.linalg.norm(out) / jnp.linalg.norm(A))
-        assert abs(ratio - 1.0) < 0.1
-        # determinism
-        out2 = gaussian_sketch(A, d, 11, interpret=True)
-        np.testing.assert_array_equal(np.asarray(out), np.asarray(out2))
-        # different seed differs
-        out3 = gaussian_sketch(A, d, 12, interpret=True)
-        assert not np.allclose(np.asarray(out), np.asarray(out3))
+class TestKernelChoice:
+    @pytest.mark.parametrize("platform,d,dtype,fused", [
+        ("gpu", 8, jnp.float32, True),
+        ("gpu", 64, jnp.float32, True),
+        ("cpu", 8, jnp.float32, False),     # never interpret mode on a run
+        ("gpu", 8, jnp.float64, False),     # f64 takes the plain path
+        ("gpu", 65, jnp.float32, False),    # wide points take it too
+    ])
+    def test_choice(self, platform, d, dtype, fused):
+        assert use_fused_matmat(platform, d, dtype) is fused
 
-
-class TestPallasWY:
-    """Fused masked-WY trailing update kernels (ops/pallas_wy.py) vs the
-    jnp reference, in interpret mode."""
-
-    def test_masked_vt_a(self):
-        from randlapack_tpu.ops.pallas_wy import (masked_vt_a,
-                                                  masked_vt_a_reference)
-        rng = np.random.default_rng(0)
-        V = jnp.asarray(rng.standard_normal((1024, 512)), jnp.float32)
-        A = jnp.asarray(rng.standard_normal((1024, 1024)), jnp.float32)
-        mask = jnp.asarray(rng.random(1024) > 0.3, jnp.float32)
-        o1 = masked_vt_a(V, A, mask, interpret=True)
-        o2 = masked_vt_a_reference(V, A, mask)
-        assert float(jnp.max(jnp.abs(o1 - o2))) < 1e-3 * float(
-            jnp.max(jnp.abs(o2)))
-
-    def test_full_trailing_update_and_fallback(self):
-        from randlapack_tpu.ops.pallas_wy import (
-            trailing_wy_update, a_minus_vz_masked_reference,
-            masked_vt_a_reference)
-        rng = np.random.default_rng(1)
-        V = jnp.asarray(rng.standard_normal((1024, 512)), jnp.float32)
-        A = jnp.asarray(rng.standard_normal((1024, 1024)), jnp.float32)
-        T = jnp.asarray(rng.standard_normal((512, 512)), jnp.float32) / 512
-        mask = jnp.asarray(rng.random(1024) > 0.5, jnp.float32)
-        hp = jax.lax.Precision.HIGHEST
-        Wk = masked_vt_a_reference(V, A, mask)
-        ref = a_minus_vz_masked_reference(
-            A, V, jnp.matmul(T.T, Wk, precision=hp), mask)
-        out_k = trailing_wy_update(A, V, T, mask, interpret=True)
-        assert float(jnp.max(jnp.abs(out_k - ref))) < 2e-3
-        # non-divisible shapes take the jnp fallback transparently
-        out_f = trailing_wy_update(A[:1000], V[:1000], T, mask)
-        assert out_f.shape == (1000, 1024)
-
-
-class TestPallasQRCP:
-    """VMEM-resident sketch-QRCP pivot kernel (ops/pallas_qrcp.py) vs the
-    jnp fori_loop reference — same masked-reflector math, so the pivot
-    sequences must match exactly on f32 inputs."""
-
-    def test_exact_pivot_match(self):
-        from randlapack_tpu.ops.qr import qrcp_select_pivots
-        from randlapack_tpu.ops.pallas_qrcp import (
-            qrcp_select_pivots_pallas)
-        rng = np.random.default_rng(0)
-        for d, n, b in [(74, 512, 64), (26, 256, 16), (138, 1024, 128)]:
-            Y = jnp.asarray(rng.standard_normal((d, n))
-                            * np.exp(-3 * rng.random(n))[None, :],
-                            jnp.float32)
-            live = jnp.ones((n,), jnp.float32).at[:7].set(0.0)
-            ref = qrcp_select_pivots(Y, b, live)
-            pal = qrcp_select_pivots_pallas(Y, b, live, interpret=True)
-            np.testing.assert_array_equal(np.asarray(ref),
-                                          np.asarray(pal))
-            # retired (live=0) columns are never selected
-            assert not set(np.asarray(pal).tolist()) & set(range(7))
-
-    def test_routed_fallback_f64(self):
-        # f64 routes to the jnp path transparently (no TPU f64 kernels)
-        from randlapack_tpu.ops.qr import qrcp_select_pivots
-        from randlapack_tpu.ops.pallas_qrcp import (
-            qrcp_select_pivots_routed)
-        rng = np.random.default_rng(1)
-        Y = jnp.asarray(rng.standard_normal((40, 256)))
-        live = jnp.ones((256,), Y.dtype)
-        ref = qrcp_select_pivots(Y, 32, live)
-        out = qrcp_select_pivots_routed(Y, 32, live)
-        np.testing.assert_array_equal(np.asarray(ref), np.asarray(out))
-
-    def test_panel_kernel_matches(self):
-        from randlapack_tpu.ops.qr import qrcp_panel
-        from randlapack_tpu.ops.pallas_qrcp import qrcp_panel_routed
-        rng = np.random.default_rng(2)
-        for m, b, r0 in [(512, 64, 0), (512, 64, 128), (768, 128, 300)]:
-            P = jnp.asarray(rng.standard_normal((m, b)), jnp.float32)
-            for pv in (True, False):
-                W1, V1, t1, s1 = qrcp_panel(P, r0, pv)
-                W2, V2, t2, s2 = qrcp_panel_routed(
-                    P, r0, pv, use_pallas="auto", interpret=True)
-                np.testing.assert_array_equal(np.asarray(s1),
-                                              np.asarray(s2))
-                assert float(jnp.max(jnp.abs(W1 - W2))) < 1e-4
-                assert float(jnp.max(jnp.abs(V1 - V2))) < 1e-5
-                assert float(jnp.max(jnp.abs(t1 - t2))) < 1e-5
+    def test_linop_on_cpu_takes_plain_path(self):
+        """On the CPU the linop's matmat is the blocked jnp path and
+        agrees with the dense reference plus the regularization."""
+        X = jax.random.normal(jax.random.key(4), (4, 300), jnp.float32)
+        V = jax.random.normal(jax.random.key(5), (300, 3), jnp.float32)
+        op = SquaredExpKernelLinOp(X, 1.1, 0.5, block=128)
+        out = op.matmat(V)
+        ref = kernel_matmat_reference(X, V, 1.1) + 0.5 * V
+        np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
+                                   rtol=1e-5, atol=1e-5)

@@ -106,6 +106,22 @@ class TestDistDrivers:
                              - np.asarray(util.col_swap(A, J)))
         assert res < 1e-11 * float(jnp.linalg.norm(A)) * 64
 
+    def test_dist_cqrrpt_collective_and_shards(self, mesh):
+        """The compiled program reduces the Gram over the mesh with an
+        all-reduce, and Q keeps m/8 rows on each device."""
+        from randlapack_tpu.parallel import dist_cqrrpt
+        m, n = 1024, 64
+        A, _ = mat_gen(MatGenInfo(m, n, MatType.exponential,
+                                  cond_num=1e5), RNGState(20))
+        As = jax.device_put(A, row_sharded(mesh))
+        hlo = jax.jit(lambda a: dist_cqrrpt(a, mesh, RNGState(21))[:5]
+                      ).lower(As).compile().as_text()
+        assert "all-reduce" in hlo
+        Q = dist_cqrrpt(As, mesh, RNGState(21))[0]
+        shapes = {sh.data.shape for sh in Q.addressable_shards}
+        assert shapes == {(m // 8, n)}
+        assert len(Q.addressable_shards) == 8
+
     def test_dist_rsvd(self, mesh):
         from randlapack_tpu.parallel import dist_rsvd
         from randlapack_tpu.gen import gen_exp_singvals, gen_singvec

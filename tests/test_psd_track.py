@@ -245,7 +245,7 @@ class TestLSQR:
 
 class TestREVD2Battery:
     """The reference's REVD2 adaptive battery (test_revd2.cc:223-414:
-    Underestimation1/2, Overestimation1/2, Exactness) on the TPU API."""
+    Underestimation1/2, Overestimation1/2, Exactness) on this API."""
 
     def _spiked(self, n, true_rank, seed):
         lam = jnp.concatenate([

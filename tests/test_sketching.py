@@ -203,9 +203,8 @@ class TestSparseData:
 
 
 class TestSASOGatherApply:
-    """TPU-friendly gather-layer SASO apply == scatter reference
-    (SURVEY.md §7 "SASO on TPU"; measured within 1.11x of SRHT-sketched
-    CQRRPT at 131072x2048 on the chip)."""
+    """Gather-layer SASO apply == scatter reference (SURVEY.md §7
+    "SASO")."""
 
     def test_matches_scatter(self):
         from randlapack_tpu.sketching import (SparseDist, fill_sparse,

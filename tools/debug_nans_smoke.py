@@ -1,5 +1,4 @@
-"""jax_debug_nans smoke lane (VERDICT r3 item 8 — the TPU-relevant
-analogue of the reference's Debug+ASan CI lane, docs/CI.md:9-23).
+"""jax_debug_nans smoke lane (the accelerator analogue of the reference's Debug+ASan CI lane, docs/CI.md:9-23).
 
 Drives every driver family on small HEALTHY inputs with
 ``jax_debug_nans`` enabled: any unintended NaN produced along the

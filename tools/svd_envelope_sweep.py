@@ -1,12 +1,11 @@
 """Gram/eigh SVD accuracy envelope (VERDICT r3 item 7).
 
-ops/svd.py::svd_econ's "gram_eigh" route is the forced SVD on the TPU
-backend (XLA's polar SVD takes ~4 min to compile there). It squares the
+ops/svd.py::svd_econ's "gram_eigh" route squares the
 condition number through the Gram matrix, then Rayleigh-refines the
 singular VALUES (σᵢ = ‖Bvᵢ‖, relative error ~eps·σ₁/σᵢ instead of the
 λ-path's eps·(σ₁/σᵢ)²). This sweep measures, against f64 LAPACK truth,
 how far down the spectrum values and triplet residuals stay trustworthy
-in f32 — the dtype the chip actually runs.
+in f32 — the dtype the accelerator runs.
 
 Output: a table over decay laws × matrix shapes, reporting for each
 tolerance the deepest σᵢ/σ₁ at which every shallower singular value
